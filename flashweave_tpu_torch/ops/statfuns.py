@@ -1,0 +1,173 @@
+"""Statistical functions: G-test mutual information, Fisher-z, BH-FDR.
+
+PyTorch counterpart of ``flashweave_tpu/ops/statfuns.py`` (reference:
+src/statfuns.jl).  Two halves:
+
+- host float64 functions on numpy/scipy (p-values, chi2 thresholds,
+  Benjamini-Hochberg), identical in formula and operation order to the JAX
+  package's numpy branch, so p-values and FDR decisions agree bit for bit;
+- tensor functions (:func:`mi_stats`, :func:`sufficient_power`) that run on
+  whatever device their inputs live on, in the inputs' float dtype.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from scipy.special import erfc as _erfc, gammaincc as _gammaincc
+
+
+# ---------------------------------------------------------------------------
+# Fisher-z (continuous tests), host float64
+# ---------------------------------------------------------------------------
+
+def fisher_z_transform(p, n, len_z):
+    """z-statistic of a (partial) correlation (reference: src/statfuns.jl:3-11)."""
+    sample_factor = np.asarray(n - len_z - 3, dtype=np.float64)
+    p = np.asarray(p)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        z = (np.sqrt(np.maximum(sample_factor, 0)) / 2.0) * np.log((1.0 + p) / (1.0 - p))
+    return np.where(sample_factor > 0, z, 0.0)
+
+
+def fz_pval(stat, n, len_z):
+    """Two-sided normal p-value of the Fisher-z statistic (reference:
+    src/statfuns.jl:13-17).  ccdf(Normal(), |z|)*2 == erfc(|z|/sqrt(2))."""
+    return _erfc(np.abs(fisher_z_transform(stat, n, len_z)) / np.sqrt(2.0))
+
+
+# ---------------------------------------------------------------------------
+# Mutual information / G-test (discrete tests), host float64
+# ---------------------------------------------------------------------------
+
+def mi_pval(mi, df, n_obs):
+    """chi2 p-value of the G statistic 2*MI*n (reference: src/statfuns.jl:157-161).
+    ccdf(Chisq(df), g) == gammaincc(df/2, g/2); df <= 0 -> 1.0."""
+    g_stat = 2.0 * np.abs(mi) * n_obs
+    df = np.asarray(df)
+    safe_df = np.where(df > 0, df, 1)
+    pval = _gammaincc(safe_df / 2.0, g_stat / 2.0)
+    return np.where(df > 0, pval, 1.0)
+
+
+_chi2_thr_cache: dict = {}
+
+
+def chi2_g_threshold(alpha: float, max_df: int) -> np.ndarray:
+    """Per-df significance thresholds on the scaled G statistic x = |mi|*n.
+
+    thr[d] solves gammaincc(d/2, thr[d]) == alpha, so
+    ``mi_pval(mi, df, n) < alpha  <=>  |mi|*n > thr[df]`` for integer df >= 1
+    (df <= 0 maps to pval 1.0, thr[0] = inf).  The scheduler classifies a
+    whole round's significance with it and evaluates exact p-values only on
+    the early-exit prefix (reference: src/tests.jl:326-336)."""
+    arr = _chi2_thr_cache.get(alpha)
+    if arr is None or len(arr) <= max_df:
+        from scipy.special import gammainccinv
+
+        d = np.arange(1, max_df + 1, dtype=np.float64)
+        arr = np.concatenate([[np.inf], gammainccinv(d / 2.0, alpha)])
+        _chi2_thr_cache[alpha] = arr
+    return arr
+
+
+def benjamini_hochberg(pvals, alpha=0.01, m=None):
+    """Accelerated BH correction on the significant tail (reference:
+    src/statfuns.jl:326-350).
+
+    Returns a NEW array: entries with raw p < alpha hold the adjusted p-value,
+    all others (including NaN unreliable tests) are NaN.  ``m`` is the number
+    of tests used for correction (may exclude unreliable tests, reference
+    src/tests.jl:521-528)."""
+    p = np.asarray(pvals, dtype=np.float64)
+    out = np.full(p.shape, np.nan)
+    if p.size == 0:
+        return out
+    if m is None:
+        m = p.size
+    with np.errstate(invalid="ignore"):
+        mask = p < alpha                       # NaN compares False
+    idx = np.nonzero(mask)[0]
+    if idx.size == 0:
+        return out
+    order = np.argsort(p[idx], kind="stable")
+    sidx = idx[order]
+    sp = p[sidx]
+    nf = sp.size
+    # reversed running minimum of sp[i] * m / (i+1), capped at 1
+    terms = sp * float(m) / np.arange(1.0, nf + 1.0)
+    adj = np.minimum.accumulate(terms[::-1])[::-1]
+    np.minimum(adj, 1.0, out=adj)
+    out[sidx] = adj
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tensor functions
+# ---------------------------------------------------------------------------
+
+def mi_stats(ctab: torch.Tensor, ox: torch.Tensor, oy: torch.Tensor,
+             signed: bool = True):
+    """Batched signed mutual information + adjusted df from stratified
+    contingency tables (reference: src/statfuns.jl:163-254
+    ``mutual_information`` and :281-305 ``adjust_df``).
+
+    The nz sub-table slicing (src/statfuns.jl:313-323) is expressed by zeroing
+    the sliced-away cells beforehand and passing the slice offsets ``ox, oy``
+    in {0, 1}, so the sub-table's diagonal ``i == j`` becomes
+    ``(a - ox) == (b - oy)`` on the full table.
+
+    Args:
+      ctab: (..., L, L, S) float contingency counts, invalid cells zeroed.
+      ox, oy: (...,) integer offsets of the valid region.
+    Returns:
+      (mi_stat, df, n_obs) of shape (...,): mi float, df int64, n_obs float.
+    """
+    L = ctab.shape[-2]
+    marg_i = ctab.sum(dim=-2)                     # (..., L, S)
+    marg_j = ctab.sum(dim=-3)                     # (..., L, S)
+    marg_k = marg_i.sum(dim=-2)                   # (..., S)
+    n_obs = marg_k.sum(dim=-1)                    # (...,)
+
+    mik = marg_i[..., :, None, :]
+    mjk = marg_j[..., None, :, :]
+    mk = marg_k[..., None, None, :]
+    valid = (ctab != 0) & (mik != 0) & (mjk != 0)
+    one = torch.ones((), dtype=ctab.dtype, device=ctab.device)
+    denom = torch.where(valid, mik * mjk, one)
+    ratio = torch.where(valid, (mk * ctab) / denom, one)
+    term = torch.where(valid, torch.log(ratio) * ctab, 0.0)
+
+    idx = torch.arange(L, device=ctab.device)
+    a_idx = idx[:, None, None]
+    b_idx = idx[None, :, None]
+    diag = (a_idx - ox[..., None, None, None]) == (b_idx - oy[..., None, None, None])
+
+    mi_pos = torch.where(diag, term, 0.0).sum(dim=(-3, -2, -1))
+    mi_neg = torch.where(diag, 0.0, term).sum(dim=(-3, -2, -1))
+    n_pos = torch.where(diag, ctab, 0.0).sum(dim=(-3, -2, -1))
+    n_neg = n_obs - n_pos
+
+    safe_n = torch.where(n_obs > 0, n_obs, one)
+    mi_stat = (mi_pos + mi_neg) / safe_n
+    if signed:
+        flip = mi_neg * (n_neg / safe_n) > mi_pos * (n_pos / safe_n)
+        mi_stat = torch.where(flip, -mi_stat, mi_stat)
+
+    alx = torch.clamp((marg_i != 0).sum(dim=-2), min=1)   # (..., S)
+    aly = torch.clamp((marg_j != 0).sum(dim=-2), min=1)
+    df = ((alx - 1) * (aly - 1)).sum(dim=-1)
+    return mi_stat, df, n_obs
+
+
+def sufficient_power(levels_x, levels_y, n_obs, hps, levels_z=None):
+    """Heuristic power criterion (reference: src/tests.jl:5-6) on tensors.
+    Zero level products follow Julia's n/0 == Inf > hps semantics."""
+    n_obs = torch.as_tensor(n_obs)
+    cells = levels_x * levels_y * (levels_z if levels_z is not None else 1)
+    cells = torch.as_tensor(cells, device=n_obs.device).to(torch.float64)
+    n_obs = n_obs.to(torch.float64)
+    ratio = torch.where(cells > 0,
+                        n_obs / torch.where(cells > 0, cells, 1.0),
+                        torch.inf)
+    return ratio > hps

@@ -1,0 +1,272 @@
+"""Batched all-pairs univariate association tests (discrete modes).
+
+PyTorch counterpart of ``flashweave_tpu/ops/univariate.py`` (reference:
+src/tests.jl:370-532 ``pw_univar_neighbors``).  The pass walks X-variable
+blocks against triangle Y-slabs; each block's (stat, df, n_obs, suff) comes
+from the fused univariate G-test kernel (:func:`..ops.kernels.mi_univar_stats`,
+hand-written CUDA on the card, its plain PyTorch version on the CPU).  The
+per-pair aggregates are condensed on the host, where p-values and the
+Benjamini-Hochberg correction run in float64 (the reference keeps all
+statistics in Float64).
+
+Only mi and mi_nz are ported: fz (ROADMAP queue 1 item 7) and fz_nz (item 8)
+raise ``NotImplementedError``.  The two-pass device extraction of the JAX
+package (its ``_extract_scan``) is ROADMAP item X3.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from . import statfuns as sf
+from ..utils.misc import is_zero_adjusted, isdiscrete
+
+
+def mi_block_stats(ctab: torch.Tensor, levels_x, levels_y, maxv_x, maxv_y,
+                   hps: float, n_obs_min: float, nz, L: int):
+    """Univariate MI G-test statistics from a block of pair tables
+    (reference: src/tests.jl:28-77): nz slicing, power pre/post checks,
+    signed MI, df adjustment.
+
+    Shapes: ctab (t, q, L, L) float; levels_x/maxv_x (t,); levels_y/maxv_y
+    (q,) integer tensors on ctab's device.  ``nz`` is 0, 1 or 2 (2 = every
+    variable has 3 levels; same arithmetic as 1).  Returns (stat, df, n_obs,
+    suff) with df int64 and n_obs in ctab's dtype."""
+    t, q = ctab.shape[:2]
+    dev = ctab.device
+    lx = levels_x[:, None].to(ctab.dtype)
+    ly = levels_y[None, :].to(ctab.dtype)
+    a = torch.arange(L, device=dev)
+    if nz:
+        ox = (maxv_x > 1).long()[:, None].expand(t, q)
+        oy = (maxv_y > 1).long()[None, :].expand(t, q)
+        keep = (a[:, None] >= ox[..., None, None]) & (a[None, :] >= oy[..., None, None])
+        sub = ctab * keep.to(ctab.dtype)
+        lx_eff = (L - ox).to(ctab.dtype)               # size of sliced table
+        ly_eff = (L - oy).to(ctab.dtype)
+        # rows of the X-trimmed view (pre-check n_obs): all rows with x >= ox
+        rowkeep = (a[:, None] >= ox[..., None, None]).expand(t, q, L, L)
+        n_view = (ctab * rowkeep.to(ctab.dtype)).sum(dim=(-2, -1))
+    else:
+        ox = torch.zeros((t, q), dtype=torch.long, device=dev)
+        oy = ox
+        sub = ctab
+        lx_eff = lx.expand(t, q)
+        ly_eff = ly.expand(t, q)
+        n_view = ctab.sum(dim=(-2, -1))
+
+    stat, df, n_obs = sf.mi_stats(sub[..., None], ox, oy)
+
+    # pre-check (reference src/tests.jl:9-20): offsets from LEVELS (>1 -> 2),
+    # zero denominators pass (Julia n/0 == Inf)
+    plx = lx - torch.where(lx > 1, 2.0, 1.0)
+    ply = ly - torch.where(ly > 1, 2.0, 1.0)
+    cells_pre = plx * ply
+    pre_ok = (n_view >= n_obs_min) & torch.where(
+        cells_pre > 0, n_view / torch.where(cells_pre > 0, cells_pre, 1.0) > hps,
+        True)
+    # post-check (reference src/tests.jl:56-62)
+    cells_post = lx_eff * ly_eff
+    post_ok = (n_obs >= n_obs_min) & torch.where(
+        cells_post > 0, n_obs / torch.where(cells_post > 0, cells_post, 1.0) > hps,
+        True)
+    # X variables with < 2 levels never test (reference src/tests.jl:86-92)
+    suff = pre_ok & post_ok & (lx >= 2)
+    stat = torch.where(suff, stat, 0.0)
+    df = torch.where(suff, df, 0)
+    return stat, df, n_obs, suff
+
+
+def cor_matrix(data):
+    """The fz correlation matrix (JAX package: ``univariate.cor_matrix``)."""
+    raise NotImplementedError(
+        "fz is not ported to PyTorch yet (ROADMAP queue 1 item 7)")
+
+
+# ---------------------------------------------------------------------------
+# host driver
+# ---------------------------------------------------------------------------
+
+def _choose_tile(p: int, requested: Optional[int]) -> int:
+    if requested is not None:
+        return min(requested, p)
+    return min(p, 512)
+
+
+def condensed_pos(X, Y, p):
+    """Row-major condensed position of pair (X < Y) in the n_pairs vector
+    (reference layout: src/tests.jl:377-388)."""
+    X = np.asarray(X, dtype=np.int64)
+    Y = np.asarray(Y, dtype=np.int64)
+    return X * (2 * p - X - 1) // 2 + (Y - X - 1)
+
+
+def condensed_to_pair(idx, p):
+    """Inverse of condensed_pos (vectorized), avoiding O(p^2) index tables."""
+    idx = np.asarray(idx, dtype=np.int64)
+    # solve X(2p - X - 1)/2 <= idx: X = floor((2p-1 - sqrt((2p-1)^2-8idx))/2)
+    disc = (2 * p - 1) ** 2 - 8 * idx.astype(np.float64)
+    X = ((2 * p - 1 - np.sqrt(disc)) / 2).astype(np.int64)
+    # fp-correct the boundary
+    for _ in range(2):
+        base = X * (2 * p - X - 1) // 2
+        X = np.where(base > idx, X - 1, X)
+        base = X * (2 * p - X - 1) // 2
+        too_low = idx - base >= (p - 1 - X)
+        X = np.where(too_low, X + 1, X)
+    base = X * (2 * p - X - 1) // 2
+    Y = idx - base + X + 1
+    return X, Y
+
+
+def _condense_block(s, t, p, blocks, outs, y_start=0):
+    """Scatter a (tile, y_len) block slab's X<Y entries (Y < p) into the
+    condensed output vectors.  Column q of the slab is variable y_start+q."""
+    y_len = blocks[0].shape[1]
+    ys = np.arange(y_start, min(y_start + y_len, p))
+    rows, cols = np.nonzero(np.arange(s, s + t)[:, None] < ys[None, :])
+    pos = condensed_pos(rows + s, ys[cols], p)
+    for blk, out in zip(blocks, outs):
+        out[pos] = blk[rows, cols]
+
+
+def _y_slabs(p_int: int, tile_sz: int, triangle: bool):
+    """Per-X-block Y-slab choices [y_start, p_int) for the pair sweep.
+
+    With triangle=True each slab covers only Y >= x_start (every X<Y pair is
+    still produced exactly once), bucketed to at most ~8 distinct slab
+    lengths.  Cuts device work ~1.8x versus the full rectangle."""
+    if not triangle:
+        return lambda s: (0, p_int)
+    step = max(tile_sz, -(-p_int // (8 * tile_sz)) * tile_sz)
+
+    def slab(s):
+        y_len = min(p_int, -(-(p_int - s) // step) * step)
+        return p_int - y_len, y_len
+
+    return slab
+
+
+class UnivarResult:
+    """All-pairs statistics in condensed (X < Y) layout."""
+
+    def __init__(self, p, stats, pvals, suff_power):
+        self.p = p
+        self.stats = stats          # (n_pairs,) float64, raw stats
+        self.pvals = pvals          # (n_pairs,) float64 (NaN = unreliable)
+        self.suff_power = suff_power
+
+    def neighbor_dicts(self, alpha: float) -> Dict[int, dict]:
+        """Per-variable neighbor dicts of significant pairs (reference:
+        src/tests.jl:372-388)."""
+        p = self.p
+        nbr = {X: {} for X in range(p)}
+        with np.errstate(invalid="ignore"):
+            sig = self.pvals < alpha        # NaN -> False
+        sig_idx = np.nonzero(sig)[0]
+        Xs, Ys = condensed_to_pair(sig_idx, p)
+        for idx, X, Y in zip(sig_idx, Xs, Ys):
+            entry = (float(self.stats[idx]), float(self.pvals[idx]))
+            nbr[int(X)][int(Y)] = entry
+            nbr[int(Y)][int(X)] = entry
+        return nbr
+
+
+def pw_univar_neighbors(
+    data: np.ndarray,
+    test_name: str = "mi",
+    alpha: float = 0.01,
+    hps: int = 5,
+    n_obs_min: int = 0,
+    FDR: bool = True,
+    levels: Optional[np.ndarray] = None,
+    max_vals: Optional[np.ndarray] = None,
+    cor_mat=None,
+    correct_reliable_only: bool = True,
+    tile: Optional[int] = None,
+    return_result: bool = False,
+    state=None,
+    device="cuda",
+    block_fn=None,
+):
+    """All-pairs univariate pass (reference: src/tests.jl:436-532).
+
+    Returns per-variable neighbor dicts {X: {Y: (stat, pval)}} (0-based) of
+    FDR-significant pairs; with return_result=True also the condensed
+    UnivarResult.  ``cor_mat`` belongs to fz and is accepted for the JAX
+    package's signature.
+
+    ``state`` is a :class:`flashweave_tpu_torch.state.DiscreteState` already
+    on the device (the LGL driver uploads the table once for this pass and
+    the conditioning engine); without it the table is uploaded here.
+    ``block_fn`` replaces the block-statistics function (default
+    :func:`..ops.kernels.mi_univar_stats`; the plain
+    :func:`..ops.kernels.mi_univar_stats_ref` is the one alternative, used
+    to check the kernel's decisions on the card).
+    """
+    from .kernels import mi_univar_stats
+
+    if not isdiscrete(test_name):
+        if test_name in ("fz", "fz_nz"):
+            item = 7 if test_name == "fz" else 8
+            raise NotImplementedError(
+                f"{test_name} is not ported to PyTorch yet "
+                f"(ROADMAP queue 1 item {item})")
+        raise ValueError(f"{test_name} is not a valid test name")
+    if block_fn is None:
+        block_fn = mi_univar_stats
+
+    n, p = data.shape
+    nz = int(is_zero_adjusted(test_name))
+    n_pairs = p * (p - 1) // 2
+    tile_sz = _choose_tile(p, tile)
+
+    if state is None:
+        from ..state import from_numpy_state
+
+        state = from_numpy_state(data, levels, max_vals, device)
+    L = state.L
+    if nz and L == 3 and (state.max_vals_np > 1).all():
+        # 3-state nz flag: 2 = nz-UNIFORM (every variable 3-level)
+        nz = 2
+    stats = np.empty(n_pairs)
+    df_c = np.empty(n_pairs, dtype=np.int64)
+    nobs_c = np.empty(n_pairs, dtype=np.int64)
+    suff = np.empty(n_pairs, dtype=bool)
+    slab = _y_slabs(p, tile_sz, triangle=True)
+    for s in range(0, p, tile_sz):
+        t = min(tile_sz, p - s)
+        y_start, y_len = slab(s)
+        stat, df, n_obs, sp = block_fn(
+            state.dataT, state.marg, state.levels, state.max_vals, s, t, L,
+            y_start, y_len, nz, float(hps), float(n_obs_min))
+        _condense_block(
+            s, t, p,
+            [stat.cpu().numpy(), df.cpu().numpy(), n_obs.cpu().numpy(),
+             sp.cpu().numpy()],
+            [stats, df_c, nobs_c, suff],
+            y_start=y_start,
+        )
+    pvals = sf.mi_pval(stats, df_c, nobs_c)
+    pvals = np.where(df_c > 0, pvals, 1.0)
+    pvals = np.where(suff, pvals, 1.0)
+    stats = np.where(suff, stats, 0.0)
+
+    if correct_reliable_only:
+        stats = np.where(suff, stats, np.nan)
+        pvals = np.where(suff, pvals, np.nan)
+
+    if FDR:
+        m = n_pairs
+        if correct_reliable_only:
+            m -= int(np.isnan(pvals).sum())
+        pvals = sf.benjamini_hochberg(pvals, alpha=alpha, m=m)
+
+    result = UnivarResult(p, stats, pvals, suff)
+    nbrs = result.neighbor_dicts(alpha)
+    if return_result:
+        return nbrs, result
+    return nbrs

@@ -1,0 +1,72 @@
+"""The port's device state: the prepared discrete table.
+
+FlashWeave learns no weights.  What a run keeps on the device is the
+discrete data table (int8) with its per-variable ``levels``, ``max_vals``
+and level marginals; the univariate kernel and the conditioning engine both
+read this one upload.  :func:`from_numpy_state` turns the JAX package's
+state, as numpy arrays, into it, so tests feed both packages the same
+prepared table.  ``HitonState`` and ``LGLResult`` are the shared types of
+``flashweave_tpu.types``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .ops.kernels import level_marginals
+
+
+@dataclass
+class DiscreteState:
+    data: torch.Tensor        # (n, p) int8, values in 0..L-1
+    dataT: torch.Tensor       # (p, n) int8, contiguous: the kernel's layout
+    levels: torch.Tensor      # (p,) int32 distinct values per variable
+    max_vals: torch.Tensor    # (p,) int32 largest value per variable
+    marg: torch.Tensor        # (L, p) int32 per-variable level counts
+    levels_np: np.ndarray
+    max_vals_np: np.ndarray
+    L: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+
+def from_numpy_state(data, levels: Optional[np.ndarray] = None,
+                     max_vals: Optional[np.ndarray] = None,
+                     device="cuda") -> DiscreteState:
+    """Upload a discrete (n, p) table once, with its level bookkeeping.
+
+    ``levels`` / ``max_vals`` default to ``flashweave_tpu.utils.misc``'s
+    ``get_levels`` / ``get_max_vals`` on the host.  Values must be integers
+    in 0..127 (int8); anything else raises ValueError."""
+    from .utils.misc import get_levels, get_max_vals
+
+    dev = resolve_device(device)
+    data = np.asarray(data)
+    if levels is None:
+        levels = get_levels(data)
+    if max_vals is None:
+        max_vals = get_max_vals(data)
+    di8 = data.astype(np.int8)
+    if di8.min(initial=0) < 0 or not np.array_equal(di8, data):
+        raise ValueError("discrete tables must hold integers in 0..127")
+    levels_np = np.asarray(levels, dtype=np.int32)
+    max_vals_np = np.asarray(max_vals, dtype=np.int32)
+    L = int(max_vals_np.max(initial=0)) + 1
+    data_t = torch.from_numpy(di8).to(dev)
+    return DiscreteState(
+        data=data_t,
+        dataT=data_t.T.contiguous(),
+        levels=torch.from_numpy(levels_np).to(dev),
+        max_vals=torch.from_numpy(max_vals_np).to(dev),
+        marg=level_marginals(data_t, L),
+        levels_np=levels_np,
+        max_vals_np=max_vals_np,
+        L=L,
+    )

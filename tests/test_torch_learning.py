@@ -1,0 +1,135 @@
+"""End-to-end: the PyTorch port's ``learn_network(..., device="cpu")``
+against ``flashweave_tpu.learn_network`` on the same synthetic table.
+
+single / single_il must give identical edge sets with weights within rtol
+1e-9; multi_il interleaves feed-forward mid-search, so its networks are
+compared through the reference's tolerance model (as tests/test_learning.py
+does for the JAX package).  The search-layer copies in the port must match
+their JAX files except for the documented lines.
+"""
+
+import difflib
+import warnings
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import flashweave_tpu as fw
+import flashweave_tpu_torch as fwt
+from flashweave_tpu.utils.testing import compare_graph_results
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _synth_table(n, p, group, seed=1):
+    """Grouped 3-level table, built like bench.py's synthetic LGL input."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 3, (n, p // group)).astype(np.int8)
+    data = np.repeat(base, group, axis=1)
+    flip = rng.random((n, p)) < 0.35
+    data = np.where(flip, rng.integers(0, 3, (n, p), dtype=np.int8), data)
+    return data.astype(np.float64)
+
+
+@pytest.fixture(scope="module")
+def table():
+    return _synth_table(400, 60, 5)
+
+
+def _both(data, **kw):
+    kw = dict(sensitive=False, verbose=False, time_limit=0.0, **kw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        want = fw.learn_network(data, **kw)
+        got = fwt.learn_network(data, device="cpu", **kw)
+    return fw.graph(want), fwt.graph(got)
+
+
+@pytest.mark.parametrize("het,max_k,parallel", [
+    (False, 0, "single"), (True, 0, "single"),
+    (False, 3, "single"), (False, 3, "single_il"),
+    (True, 3, "single"), (True, 3, "single_il"),
+])
+def test_network_equals_jax(table, het, max_k, parallel):
+    want, got = _both(table, heterogeneous=het, max_k=max_k,
+                      parallel_mode=parallel)
+    we = list(want.edges())
+    ge = list(got.edges())
+    assert len(we) > 20
+    assert [(u, v) for u, v, _ in ge] == [(u, v) for u, v, _ in we]
+    np.testing.assert_allclose([w for *_, w in ge], [w for *_, w in we],
+                               rtol=1e-9, atol=0)
+
+
+@pytest.mark.parametrize("het", [False, True])
+def test_multi_il_within_tolerance_model(table, het):
+    want, got = _both(table, heterogeneous=het, max_k=3,
+                      parallel_mode="multi_il")
+    slack = (dict(approx_nbr_diff=22, approx_weight_meandiff=0.25) if not het
+             else dict(approx_nbr_diff=4, approx_weight_meandiff=0.1))
+    assert compare_graph_results(want, got, **slack)
+
+
+def test_auto_mode_is_single_il(table):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        res = fwt.learn_network(table[:, :20], sensitive=False, max_k=1,
+                                verbose=False, device="cpu")
+    assert res.parameters["parallel"] == "single_il"
+
+
+def test_cuda_device_raises_without_cuda(table, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fwt.learn_network(table, sensitive=False, verbose=False)
+
+
+def test_continuous_modes_not_ported(table):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fwt.learn_network(table, sensitive=True, verbose=False, device="cpu")
+
+
+# lines each copy may differ in: its header docstring, and the scheduler's
+# multi-process probe
+_ALLOWED = {
+    "hiton.py": set(),
+    "bnb.py": set(),
+    "scheduler.py": {
+        "import jax",
+        "self._multiproc = (engine.mesh is not None",
+        "and jax.process_count() > 1)",
+        "if self._multiproc and jax.process_index() != 0:",
+        "self.verbose = False        # progress printing is rank 0's job",
+        "# single process: the port drives one device (multi-device is",
+        "# ROADMAP queue 1 item 9)",
+        "self._multiproc = False",
+    },
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ALLOWED))
+def test_search_layer_copies_match_jax(name):
+    jax_src = (ROOT / "flashweave_tpu" / "learning" / name).read_text()
+    port_src = (ROOT / "flashweave_tpu_torch" / "learning" / name).read_text()
+    assert port_src.startswith(f'"""Copy of ``flashweave_tpu/learning/{name}``')
+    # the port's header paragraphs precede the JAX docstring's first line
+    jax_body = jax_src[len('"""'):]
+    body = port_src[port_src.index(jax_body.splitlines()[0]):]
+    diff = [
+        line[1:].strip() for line in difflib.ndiff(
+            jax_body.splitlines(), body.splitlines())
+        if line[:1] in "+-" and line[1:].strip()
+    ]
+    assert set(diff) <= _ALLOWED[name], diff
+
+
+def test_lgl_profile_dir_writes_trace(table, tmp_path):
+    from flashweave_tpu_torch.learning.lgl import LGL
+
+    data = table[:200, :20].astype(np.int64)
+    res = LGL(data, test_name="mi", max_k=0, verbose=False, device="cpu",
+              profile_dir=str(tmp_path))
+    assert res.graph.n_nodes == 20
+    assert (tmp_path / "trace.json").stat().st_size > 0

@@ -3,13 +3,14 @@
 The PyTorch port of ``flashweave_tpu`` (reference layout: src/FlashWeave.jl
 exports learn_network, normalize_data, save_network, load_network,
 load_data, graph, meta_variable_mask), with the same seven-function API.
-It imports no jax.  Loading, normalization and the result types are the JAX
-package's numpy-only modules; the learning runs on a ``device`` (default
-``"cuda"``) with hand-written CUDA kernels for the hot loops and plain
-PyTorch elsewhere.
+It imports neither jax nor the JAX package: loading, normalization and the
+result types are the port's own copies of the JAX package's host modules.
+The learning runs on a ``device`` (default ``"cuda"``) with hand-written
+CUDA kernels for the hot loops and plain PyTorch elsewhere.
 
-Ported so far: the discrete modes mi and mi_nz (``sensitive=False``) on one
-device.  See ROADMAP.md for what remains.
+Ported so far, on one device: the discrete modes mi and mi_nz
+(``sensitive=False``) and fz_nz (``sensitive=True, heterogeneous=True``).
+See ROADMAP.md for what remains.
 """
 
 from .types import (
@@ -26,10 +27,10 @@ from .types import (
 __version__ = "0.1.0"
 
 _LAZY = {
-    "normalize_data": ("flashweave_tpu.preprocessing", "normalize_data"),
-    "load_data": ("flashweave_tpu.io", "load_data"),
-    "save_network": ("flashweave_tpu.io", "save_network"),
-    "load_network": ("flashweave_tpu.io", "load_network"),
+    "normalize_data": ("flashweave_tpu_torch.preprocessing", "normalize_data"),
+    "load_data": ("flashweave_tpu_torch.io", "load_data"),
+    "save_network": ("flashweave_tpu_torch.io", "save_network"),
+    "load_network": ("flashweave_tpu_torch.io", "load_network"),
     "learn_network": ("flashweave_tpu_torch.learning.network", "learn_network"),
 }
 

@@ -1,14 +1,15 @@
-"""LGL: local-to-global learning driver (PyTorch port, discrete modes).
+"""LGL: local-to-global learning (PyTorch port: mi, mi_nz, fz_nz).
 
 PyTorch counterpart of ``flashweave_tpu/learning/lgl.py`` (reference:
 src/learning.jl:1-279): parameter resolution (auto time_limit / n_obs_min
 heuristics), the univariate stage, the conditional neighborhood search and
 weight assembly into the final symmetric graph.
 
-The discrete table is uploaded to the device once (int8, with its levels,
-max_vals and level marginals; :mod:`flashweave_tpu_torch.state`) and serves
-both the univariate kernel and the conditioning engine.  Levels are counted
-on the host by ``utils.misc.get_levels`` / ``get_max_vals``.
+The table is uploaded to the device once (:mod:`flashweave_tpu_torch.state`)
+and serves both the univariate kernel and the conditioning engine: int8 with
+its levels, max_vals and level marginals for the discrete tests (levels are
+counted on the host by ``utils.misc.get_levels`` / ``get_max_vals``), one
+contiguous float64 tensor for fz_nz.
 
 Execution modes on one device:
 - parallel="single" / "single_il": one target at a time (exact sequential
@@ -31,7 +32,7 @@ import numpy as np
 from ..device import resolve_device
 from ..ops import univariate as uv
 from ..ops.condtests import CondTestEngine
-from ..state import from_numpy_state
+from ..state import from_numpy_continuous, from_numpy_state
 from ..types import HitonState, LGLResult
 from ..utils.misc import (
     get_levels,
@@ -51,7 +52,8 @@ VALID_PARALLEL = ("single", "single_il", "multi_ep", "multi_il")
 def prepare_lgl(data, test_name, time_limit, parallel, max_k, n_obs_min, hps,
                 verbose):
     """Parameter resolution heuristics (reference: src/learning.jl:1-81).
-    Returns (levels, max_vals, time_limit, n_obs_min)."""
+    Returns (levels, max_vals, time_limit, n_obs_min); levels and max_vals
+    are None for continuous tests."""
     if time_limit == -1.0:
         if parallel == "multi_il" and max_k > 0:
             time_limit = float(round(math.log2(data.shape[1])))
@@ -62,18 +64,23 @@ def prepare_lgl(data, test_name, time_limit, parallel, max_k, n_obs_min, hps,
     if time_limit != 0.0 and not parallel.endswith("_il"):
         warnings.warn("Using time_limit without interleaved parallelism is not advised.")
 
-    if verbose:
-        print("Computing levels")
-    levels = get_levels(data)
-    max_vals = get_max_vals(data)
+    levels = max_vals = None
+    if isdiscrete(test_name):
+        if verbose:
+            print("Computing levels")
+        levels = get_levels(data)
+        max_vals = get_max_vals(data)
 
     if n_obs_min < 0:
         # reference quirk: `n_obs_min < 0 & is_zero_adjusted(test_name)`
         # parses as `n_obs_min < (0 & ...)` == `n_obs_min < 0`, so the auto
         # threshold applies to ALL tests (reference: src/learning.jl:51-64)
-        max_level = int(np.max(levels))
-        n_strata = min(max_level ** max_k, 8)
-        n_obs_min = hps * 2 * 2 * n_strata
+        if isdiscrete(test_name):
+            max_level = int(np.max(levels))
+            n_strata = min(max_level ** max_k, 8)
+            n_obs_min = hps * 2 * 2 * n_strata
+        else:
+            n_obs_min = 20
         if verbose:
             print(f"Automatically setting 'n_obs_min' to {n_obs_min} for enhanced reliability")
 
@@ -139,12 +146,11 @@ def LGL(
     src/learning.jl:203-279) on ``device``.
 
     ``cache_pcor`` and ``dense_cor`` are accepted for API compatibility and
-    have no effect (they concern fz, see the JAX package's learn_network)."""
-    if not isdiscrete(test_name):
-        item = 8 if test_name.endswith("_nz") else 7
+    have no effect (they concern fz, see the JAX package's learn_network).
+    fz raises NotImplementedError (ROADMAP queue 1 item 7)."""
+    if test_name == "fz":
         raise NotImplementedError(
-            f"{test_name} is not ported to PyTorch yet (ROADMAP queue 1 "
-            f"item {item})")
+            "fz is not ported to PyTorch yet (ROADMAP queue 1 item 7)")
     if tmp_folder:
         warnings.warn("tmp_folder currently not implemented")
     if edge_rule != "OR":
@@ -163,9 +169,9 @@ def LGL(
             data, test_name, max_k, alpha, hps, n_obs_min, max_tests,
             convergence_threshold, FDR, parallel, fast_elim, no_red_tests,
             weight_type, edge_merge_fun, debug, time_limit, header,
-            correct_reliable_only, feed_forward, track_rejections,
-            all_univar_nbrs, tile, update_interval, verbose, timer, dev,
-            kwargs,
+            recursive_pcor, correct_reliable_only, feed_forward,
+            track_rejections, all_univar_nbrs, tile, update_interval,
+            verbose, timer, dev, kwargs,
         )
     if verbose and own_timer:
         print(timer.summary())
@@ -175,7 +181,7 @@ def LGL(
 def _lgl_timed(
     data, test_name, max_k, alpha, hps, n_obs_min, max_tests,
     convergence_threshold, FDR, parallel, fast_elim, no_red_tests,
-    weight_type, edge_merge_fun, debug, time_limit, header,
+    weight_type, edge_merge_fun, debug, time_limit, header, recursive_pcor,
     correct_reliable_only, feed_forward, track_rejections, all_univar_nbrs,
     tile, update_interval, verbose, timer, dev, kwargs,
 ) -> LGLResult:
@@ -187,8 +193,11 @@ def _lgl_timed(
             data, test_name, time_limit, parallel, max_k, n_obs_min, hps,
             verbose,
         )
-        # ONE int8 upload serves the univariate pass and the engine
-        state = from_numpy_state(data, levels, max_vals, dev)
+        # ONE upload serves the univariate pass and the engine
+        if isdiscrete(test_name):
+            state = from_numpy_state(data, levels, max_vals, dev)
+        else:
+            state = from_numpy_continuous(data, dev)
 
     if all_univar_nbrs is None:
         if verbose:
@@ -225,7 +234,7 @@ def _lgl_timed(
         with timer.stage("engine_init"):
             engine = CondTestEngine(
                 data, test_name, max_k, hps=hps, n_obs_min=n_obs_min,
-                state=state,
+                recursive_pcor=recursive_pcor, state=state,
             )
         cfg = HitonConfig(
             test_name=test_name, max_k=max_k, alpha=alpha, hps=hps,

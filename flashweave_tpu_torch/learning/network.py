@@ -3,9 +3,9 @@ src/learning.jl:281-598).
 
 PyTorch counterpart of ``flashweave_tpu/learning/network.py``, with the same
 keywords plus ``device``.  Loading, normalization and the result type come
-from the JAX package's numpy-only modules (``io``, ``preprocessing``,
-``types``); the learning runs on ``device`` (default ``"cuda"``, which
-raises RuntimeError when CUDA is absent).
+from the port's copies of the JAX package's host modules (``io``,
+``preprocessing``, ``types``); the learning runs on ``device`` (default
+``"cuda"``, which raises RuntimeError when CUDA is absent).
 """
 
 from __future__ import annotations
@@ -16,14 +16,13 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from flashweave_tpu.io import load_data
-from flashweave_tpu.preprocessing import (
+from ..device import resolve_device
+from ..io import load_data
+from ..preprocessing import (
     combine_data,
     convert_to_target_prec,
     normalize_data,
 )
-
-from ..device import resolve_device
 from ..types import FWResult
 from ..utils.misc import check_data, mode_string
 from .lgl import LGL
@@ -132,9 +131,10 @@ def learn_network(
     ``device`` is where the learning runs: ``"cuda"`` (default) needs a CUDA
     device and raises RuntimeError without one; ``"cpu"`` runs the plain
     PyTorch versions of the kernels.  The port drives one device, so
-    ``parallel_mode="auto"`` resolves to ``"single_il"``.  Only the discrete
-    modes (``sensitive=False``) are ported; fz and fz_nz raise
-    NotImplementedError.
+    ``parallel_mode="auto"`` resolves to ``"single_il"``.  Ported: mi and
+    mi_nz (``sensitive=False``) and fz_nz (``sensitive=True,
+    heterogeneous=True``); fz (``sensitive=True, heterogeneous=False``)
+    raises NotImplementedError.
 
     Documented divergences (accepted for API compatibility, no effect on
     results -- both toggles are performance knobs for the reference's

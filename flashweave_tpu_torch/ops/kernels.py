@@ -1,12 +1,16 @@
 """Hand-written CUDA kernels of the port, their wrappers and plain versions.
 
-K1, the fused univariate G-test (``csrc/mi_univar_stats.cu``), replaces the
-TPU kernel ``flashweave_tpu/ops/pallas_kernels.py:mi_univar_stats_pallas``.
-
-- :func:`mi_univar_stats` is the wrapper.  On a CUDA tensor it launches the
-  kernel (or raises); on a CPU tensor it runs :func:`mi_univar_stats_ref`,
-  the plain PyTorch version (pair tables, then ``mi_block_stats``).  It
-  counts its launches in ``mi_univar_stats.launches``.
+- K1, the fused univariate G-test (``csrc/mi_univar_stats.cu``), replaces
+  the TPU kernel ``flashweave_tpu/ops/pallas_kernels.py:mi_univar_stats_pallas``.
+  :func:`mi_univar_stats` is its wrapper, :func:`mi_univar_stats_ref` its
+  plain PyTorch version (pair tables, then ``mi_block_stats``).
+- K2, the fz_nz masked correlation (``csrc/fz_nz_stats.cu``), replaces
+  ``pallas_kernels.py:fz_nz_moments`` (through ``fz_nz_block_pallas``).
+  :func:`fz_nz_stats` is its wrapper, :func:`fz_nz_stats_ref` its plain
+  PyTorch version (``univariate.fz_nz_block``).
+- On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
+  tensor it runs the plain version.  Each counts its launches in
+  ``<wrapper>.launches``; :func:`launch_counts` reports them all.
 - The kernels build at first use with ``nvcc`` from ``csrc/*.cu`` into
   ``flashweave_tpu_torch/_build/`` as one shared library with a plain C
   interface, named after a hash of the sources and flags, and load through
@@ -32,7 +36,7 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # L supported by K1 (its template instantiations)
 K1_LEVELS = range(2, 9)
 
@@ -59,9 +63,10 @@ def _nvcc() -> str:
 def build_library() -> BuildInfo:
     """Compile ``csrc/*.cu`` into ``_build/libfw_kernels_<hash>.so``.
 
-    The hash covers the sources and the flags, so an edited source builds a
-    new library.  Concurrent builders each write a private temporary file and
-    rename it into place."""
+    One ``nvcc -c`` per source, all started together, then one link.  The
+    hash covers the sources and the flags, so an edited source builds a new
+    library.  Concurrent builds each write private temporary files and
+    rename the library into place."""
     sources = sorted(SRC_DIR.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
@@ -71,16 +76,32 @@ def build_library() -> BuildInfo:
     if out.exists():
         return BuildInfo(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc = _nvcc()
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    log = "".join(logs)
+    try:
+        for proc in procs:
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
-    return BuildInfo(out, secs, proc.stdout + proc.stderr)
+    return BuildInfo(out, time.perf_counter() - t0, log)
 
 
 def load_library():
@@ -96,6 +117,9 @@ def load_library():
             ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, i32, i32, f64,
             f64, ptr, ptr, ptr, ptr, ptr]
         lib.fw_mi_univar_stats.restype = i32
+        lib.fw_fz_nz_stats.argtypes = [
+            ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr]
+        lib.fw_fz_nz_stats.restype = i32
         lib.fw_cuda_error_string.argtypes = [i32]
         lib.fw_cuda_error_string.restype = ctypes.c_char_p
         _loaded[key] = (lib, info)
@@ -200,10 +224,66 @@ def mi_univar_stats(dataT, marg, levels, max_vals, start, tile, L, y_start=0,
 mi_univar_stats.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K2: fz_nz masked correlation
+# ---------------------------------------------------------------------------
+
+def fz_nz_stats_ref(data, start, tile, y_start=0, y_len=None):
+    """Plain PyTorch version of K2: ``univariate.fz_nz_block`` (six float64
+    moment products, then r), with N as int32 like the kernel's."""
+    from .univariate import fz_nz_block
+
+    r, N = fz_nz_block(data, start, tile, y_start, y_len)
+    return r, N.to(torch.int32)
+
+
+def fz_nz_stats(data, start, tile, y_start=0, y_len=None):
+    """Masked Pearson r and joint nonzero count N of the X-block
+    [start, start+tile) against the Y-slab [y_start, y_start+y_len), over the
+    rows where both variables are nonzero.
+
+    Args:
+      data: (n, p) float64 contiguous table (samples x variables).
+    Returns (r float64, N int32), each (tile, y_len).  CUDA tensors run K2;
+    CPU tensors run the plain version.
+    """
+    n, p = data.shape
+    if y_len is None:
+        y_len = p
+    if data.device.type == "cpu":
+        return fz_nz_stats_ref(data, start, tile, y_start, y_len)
+    if data.device.type != "cuda":
+        raise ValueError(f"unsupported device {data.device}")
+    if data.dtype != torch.float64 or not data.is_contiguous():
+        raise ValueError("K2 needs data as a contiguous float64 (n, p) tensor")
+    if not (0 <= start and start + tile <= p and 0 <= y_start
+            and y_start + y_len <= p):
+        raise ValueError("X-block or Y-slab out of range")
+    if tile == 0 or y_len == 0 or n == 0:
+        raise ValueError("empty X-block, Y-slab or table")
+    dev = data.device
+    r = torch.empty((tile, y_len), dtype=torch.float64, device=dev)
+    nobs = torch.empty((tile, y_len), dtype=torch.int32, device=dev)
+    lib, _ = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fw_fz_nz_stats(data.data_ptr(), n, p, start, tile, y_start,
+                                 y_len, r.data_ptr(), nobs.data_ptr(), stream)
+    _check_cuda_error(lib, err, "fz_nz_stats launch")
+    fz_nz_stats.launches += 1
+    return r, nobs
+
+
+fz_nz_stats.launches = 0
+
+_WRAPPERS = (mi_univar_stats, fz_nz_stats)
+
+
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    mi_univar_stats.launches = 0
+    for fn in _WRAPPERS:
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"mi_univar_stats": mi_univar_stats.launches}
+    return {fn.__name__: fn.launches for fn in _WRAPPERS}

@@ -1,11 +1,13 @@
-"""Statistical functions: G-test mutual information, Fisher-z, BH-FDR.
+"""Statistical functions: G-test mutual information, Fisher-z, partial
+correlation, BH-FDR.
 
 PyTorch counterpart of ``flashweave_tpu/ops/statfuns.py`` (reference:
 src/statfuns.jl).  Two halves:
 
-- host float64 functions on numpy/scipy (p-values, chi2 thresholds,
-  Benjamini-Hochberg), identical in formula and operation order to the JAX
-  package's numpy branch, so p-values and FDR decisions agree bit for bit;
+- host float64 functions on numpy/scipy (p-values, chi2 thresholds, the
+  pcor DP, Benjamini-Hochberg), identical in formula and operation order to
+  the JAX package's numpy branch, so p-values and FDR decisions agree bit
+  for bit;
 - tensor functions (:func:`mi_stats`, :func:`sufficient_power`) that run on
   whatever device their inputs live on, in the inputs' float dtype.
 """
@@ -34,6 +36,53 @@ def fz_pval(stat, n, len_z):
     """Two-sided normal p-value of the Fisher-z statistic (reference:
     src/statfuns.jl:13-17).  ccdf(Normal(), |z|)*2 == erfc(|z|/sqrt(2))."""
     return _erfc(np.abs(fisher_z_transform(stat, n, len_z)) / np.sqrt(2.0))
+
+
+# ---------------------------------------------------------------------------
+# Partial correlation (continuous tests), host float64
+# ---------------------------------------------------------------------------
+
+def pcor_dp(C, kvec, max_k, xp=np):
+    """Batched recursive partial correlation (reference: src/statfuns.jl:23-75
+    ``pcor_rec``) as a dense dynamic program: step t conditions every pair
+    among {X, Y, Z_1..Z_k} on Z_t.  Includes the reference's 5-digit rounding
+    of the numerator and the [-1, 1) clamp at every node.  The numpy code of
+    the JAX package's ``pcor_dp(xp=np)``, so the two agree bit for bit.
+
+    C: (..., m, m) correlation submatrices, index 0 = X, 1 = Y, 2.. = Zs;
+    kvec: (...,) conditioning-set sizes.  Returns (...,) pcor(X, Y | Zs)."""
+    C = xp.asarray(C)
+    kvec = xp.asarray(kvec)
+    for t in range(max_k):
+        z = t + 2
+        cz = C[..., :, z]                                  # (..., m)
+        num = C - cz[..., :, None] * cz[..., None, :]
+        num = xp.round(num * 1e5) / 1e5
+        dvec = xp.sqrt(xp.maximum(1.0 - cz * cz, 0.0))
+        den = dvec[..., :, None] * dvec[..., None, :]
+        P = xp.where(den == 0.0, 0.0, num / xp.where(den == 0.0, 1.0, den))
+        P = xp.where(P < -1.0, -1.0, P)
+        P = xp.where(P >= 1.0, 1.0, P)
+        C = xp.where((t < kvec)[..., None, None], P, C)
+    return C[..., 0, 1]
+
+
+def pcor_iterative(X, Y, Zs, data):
+    """Partial correlation by linear regression (reference:
+    src/statfuns.jl:19-21, StatsBase.partialcor), for recursive_pcor=False."""
+    data = np.asarray(data, dtype=np.float64)
+    x = data[:, X]
+    y = data[:, Y]
+    Z = data[:, list(Zs)]
+    Z1 = np.column_stack([np.ones(len(x)), Z])
+    bx, *_ = np.linalg.lstsq(Z1, x, rcond=None)
+    by, *_ = np.linalg.lstsq(Z1, y, rcond=None)
+    rx = x - Z1 @ bx
+    ry = y - Z1 @ by
+    denom = np.sqrt((rx * rx).sum() * (ry * ry).sum())
+    if denom == 0:
+        return 0.0
+    return float((rx * ry).sum() / denom)
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,23 @@
-"""Batched all-pairs univariate association tests (discrete modes).
+"""Batched all-pairs univariate association tests.
 
 PyTorch counterpart of ``flashweave_tpu/ops/univariate.py`` (reference:
 src/tests.jl:370-532 ``pw_univar_neighbors``).  The pass walks X-variable
-blocks against triangle Y-slabs; each block's (stat, df, n_obs, suff) comes
-from the fused univariate G-test kernel (:func:`..ops.kernels.mi_univar_stats`,
-hand-written CUDA on the card, its plain PyTorch version on the CPU).  The
-per-pair aggregates are condensed on the host, where p-values and the
+blocks against triangle Y-slabs.  Each block's statistics come from a
+hand-written CUDA kernel on the card and from its plain PyTorch version on
+the CPU:
+
+- mi / mi_nz: (stat, df, n_obs, suff) from the fused G-test
+  (:func:`..ops.kernels.mi_univar_stats`, K1);
+- fz_nz: the masked Pearson r and the joint nonzero count N
+  (:func:`..ops.kernels.fz_nz_stats`, K2; plain version :func:`fz_nz_block`).
+
+The per-pair aggregates are condensed on the host, where p-values and the
 Benjamini-Hochberg correction run in float64 (the reference keeps all
 statistics in Float64).
 
-Only mi and mi_nz are ported: fz (ROADMAP queue 1 item 7) and fz_nz (item 8)
-raise ``NotImplementedError``.  The two-pass device extraction of the JAX
-package (its ``_extract_scan``) is ROADMAP item X3.
+fz raises ``NotImplementedError`` (ROADMAP queue 1 item 7).  The two-pass
+device extraction of the JAX package (its ``_extract_scan``) is ROADMAP item
+X3.
 """
 
 from __future__ import annotations
@@ -78,6 +84,48 @@ def mi_block_stats(ctab: torch.Tensor, levels_x, levels_y, maxv_x, maxv_y,
     stat = torch.where(suff, stat, 0.0)
     df = torch.where(suff, df, 0)
     return stat, df, n_obs, suff
+
+
+def fz_nz_block(data: torch.Tensor, start: int, tile: int, y_start: int = 0,
+                y_len: Optional[int] = None):
+    """Masked pairwise correlation of an X-block against a Y-slab (default:
+    all variables) over rows where both are nonzero (reference:
+    src/statfuns.jl:91-123 with nz=true), as six moment products in the
+    table's dtype.  Returns (r, N), each (tile, y_len); N in the table's
+    dtype.  0/0 gives NaN, which propagates; +-inf clamps to +-1; N == 0
+    gives 0 (the JAX package's ``fz_nz_block``)."""
+    n, p = data.shape
+    if y_len is None:
+        y_len = p
+    yslab = data[:, y_start:y_start + y_len]
+    nzmask = (yslab != 0).to(data.dtype)
+    xslab = data[:, start:start + tile]
+    mb = (xslab != 0).to(data.dtype)
+    db = xslab * mb
+    dm = yslab * nzmask
+    N = mb.T @ nzmask                                 # joint nonzero counts
+    Sx = db.T @ nzmask                                # sum x over joint rows
+    Sy = mb.T @ dm
+    Sxx = (db * db).T @ nzmask
+    Syy = mb.T @ (dm * dm)
+    Sxy = db.T @ dm
+    safe_n = torch.where(N > 0, N, 1.0)
+    cov = Sxy - Sx * Sy / safe_n
+    varx = Sxx - Sx * Sx / safe_n
+    vary = Syy - Sy * Sy / safe_n
+    r = cov / torch.sqrt(varx * vary)                 # 0/0 -> NaN, x/0 -> inf
+    r = torch.where(r > 1.0, 1.0, r)
+    r = torch.where(r < -1.0, -1.0, r)
+    r = torch.where(N > 0, r, 0.0)                    # n_obs == 0 -> stat 0
+    return r, N
+
+
+def put_continuous(data, device="cuda") -> torch.Tensor:
+    """Device placement of a continuous (fz_nz) table: one contiguous
+    float64 (n, p) upload (:func:`..state.from_numpy_continuous`)."""
+    from ..state import from_numpy_continuous
+
+    return from_numpy_continuous(data, device)
 
 
 def cor_matrix(data):
@@ -175,55 +223,17 @@ class UnivarResult:
         return nbr
 
 
-def pw_univar_neighbors(
-    data: np.ndarray,
-    test_name: str = "mi",
-    alpha: float = 0.01,
-    hps: int = 5,
-    n_obs_min: int = 0,
-    FDR: bool = True,
-    levels: Optional[np.ndarray] = None,
-    max_vals: Optional[np.ndarray] = None,
-    cor_mat=None,
-    correct_reliable_only: bool = True,
-    tile: Optional[int] = None,
-    return_result: bool = False,
-    state=None,
-    device="cuda",
-    block_fn=None,
-):
-    """All-pairs univariate pass (reference: src/tests.jl:436-532).
-
-    Returns per-variable neighbor dicts {X: {Y: (stat, pval)}} (0-based) of
-    FDR-significant pairs; with return_result=True also the condensed
-    UnivarResult.  ``cor_mat`` belongs to fz and is accepted for the JAX
-    package's signature.
-
-    ``state`` is a :class:`flashweave_tpu_torch.state.DiscreteState` already
-    on the device (the LGL driver uploads the table once for this pass and
-    the conditioning engine); without it the table is uploaded here.
-    ``block_fn`` replaces the block-statistics function (default
-    :func:`..ops.kernels.mi_univar_stats`; the plain
-    :func:`..ops.kernels.mi_univar_stats_ref` is the one alternative, used
-    to check the kernel's decisions on the card).
-    """
+def _mi_pass(data, test_name, hps, n_obs_min, levels, max_vals, tile_sz,
+             state, device, block_fn):
+    """(stats, pvals, suff) of the mi / mi_nz pass (reference:
+    src/tests.jl:28-103): K1 blocks, condensed, float64 G-test p-values."""
     from .kernels import mi_univar_stats
 
-    if not isdiscrete(test_name):
-        if test_name in ("fz", "fz_nz"):
-            item = 7 if test_name == "fz" else 8
-            raise NotImplementedError(
-                f"{test_name} is not ported to PyTorch yet "
-                f"(ROADMAP queue 1 item {item})")
-        raise ValueError(f"{test_name} is not a valid test name")
     if block_fn is None:
         block_fn = mi_univar_stats
-
     n, p = data.shape
     nz = int(is_zero_adjusted(test_name))
     n_pairs = p * (p - 1) // 2
-    tile_sz = _choose_tile(p, tile)
-
     if state is None:
         from ..state import from_numpy_state
 
@@ -254,6 +264,85 @@ def pw_univar_neighbors(
     pvals = np.where(df_c > 0, pvals, 1.0)
     pvals = np.where(suff, pvals, 1.0)
     stats = np.where(suff, stats, 0.0)
+    return stats, pvals, suff
+
+
+def _fz_nz_pass(data, n_obs_min, tile_sz, table, device, block_fn):
+    """(stats, pvals, suff) of the fz_nz pass: K2 blocks, condensed,
+    n_obs_min forcing (reference src/tests.jl:121-125), float64 Fisher-z
+    p-values."""
+    from .kernels import fz_nz_stats
+
+    if block_fn is None:
+        block_fn = fz_nz_stats
+    p = data.shape[1]
+    n_pairs = p * (p - 1) // 2
+    if table is None:
+        table = put_continuous(data, device)
+    stats = np.empty(n_pairs)
+    n_obs = np.empty(n_pairs, dtype=np.int64)
+    slab = _y_slabs(p, tile_sz, triangle=True)
+    for s in range(0, p, tile_sz):
+        t = min(tile_sz, p - s)
+        y_start, y_len = slab(s)
+        r, N = block_fn(table, s, t, y_start, y_len)
+        _condense_block(s, t, p, [r.cpu().numpy(), N.cpu().numpy()],
+                        [stats, n_obs], y_start=y_start)
+    # n_obs < n_obs_min -> stat forced to 0 (reference src/tests.jl:121-125)
+    stats = np.where(n_obs >= n_obs_min, stats, 0.0)
+    suff = n_obs >= n_obs_min
+    pvals = sf.fz_pval(stats, n_obs, 0)
+    return stats, pvals, suff
+
+
+def pw_univar_neighbors(
+    data: np.ndarray,
+    test_name: str = "mi",
+    alpha: float = 0.01,
+    hps: int = 5,
+    n_obs_min: int = 0,
+    FDR: bool = True,
+    levels: Optional[np.ndarray] = None,
+    max_vals: Optional[np.ndarray] = None,
+    cor_mat=None,
+    correct_reliable_only: bool = True,
+    tile: Optional[int] = None,
+    return_result: bool = False,
+    state=None,
+    device="cuda",
+    block_fn=None,
+):
+    """All-pairs univariate pass (reference: src/tests.jl:436-532).
+
+    Returns per-variable neighbor dicts {X: {Y: (stat, pval)}} (0-based) of
+    FDR-significant pairs; with return_result=True also the condensed
+    UnivarResult.  ``cor_mat`` belongs to fz and is accepted for the JAX
+    package's signature.
+
+    ``state`` is the table already on the device (``LGL`` uploads it
+    once for this pass and the conditioning engine): a
+    :class:`flashweave_tpu_torch.state.DiscreteState` for mi / mi_nz, the
+    float64 tensor of :func:`..state.from_numpy_continuous` for fz_nz.
+    Without it the table is uploaded here.  ``block_fn`` replaces the block
+    function (default the kernel wrapper, :func:`..ops.kernels.mi_univar_stats`
+    or :func:`..ops.kernels.fz_nz_stats`; the plain ``*_ref`` version is the
+    one alternative, used to check the kernel's decisions on the card).
+    """
+    p = data.shape[1]
+    n_pairs = p * (p - 1) // 2
+    tile_sz = _choose_tile(p, tile)
+    if isdiscrete(test_name):
+        stats, pvals, suff = _mi_pass(data, test_name, hps, n_obs_min, levels,
+                                      max_vals, tile_sz, state, device,
+                                      block_fn)
+    elif test_name == "fz_nz":
+        stats, pvals, suff = _fz_nz_pass(data, n_obs_min, tile_sz, state,
+                                         device, block_fn)
+    elif test_name == "fz":
+        raise NotImplementedError(
+            "fz is not ported to PyTorch yet (ROADMAP queue 1 item 7)")
+    else:
+        raise ValueError(f"{test_name} is not a valid test name")
 
     if correct_reliable_only:
         stats = np.where(suff, stats, np.nan)

@@ -1,12 +1,16 @@
-"""The port's device state: the prepared discrete table.
+"""The port's device state: the prepared data table.
 
-FlashWeave learns no weights.  What a run keeps on the device is the
-discrete data table (int8) with its per-variable ``levels``, ``max_vals``
-and level marginals; the univariate kernel and the conditioning engine both
-read this one upload.  :func:`from_numpy_state` turns the JAX package's
-state, as numpy arrays, into it, so tests feed both packages the same
-prepared table.  ``HitonState`` and ``LGLResult`` are the shared types of
-``flashweave_tpu.types``.
+FlashWeave learns no weights.  What a run keeps on the device is the data
+table; the univariate kernel and the conditioning engine both read this one
+upload.
+
+- Discrete tests (mi, mi_nz): the int8 table with its per-variable
+  ``levels``, ``max_vals`` and level marginals (:func:`from_numpy_state`).
+- Continuous tests (fz_nz): one contiguous float64 (n, p) tensor
+  (:func:`from_numpy_continuous`).
+
+Both turn the JAX package's table, as numpy arrays, into the port's state,
+so tests feed both packages the same prepared table.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ def from_numpy_state(data, levels: Optional[np.ndarray] = None,
                      device="cuda") -> DiscreteState:
     """Upload a discrete (n, p) table once, with its level bookkeeping.
 
-    ``levels`` / ``max_vals`` default to ``flashweave_tpu.utils.misc``'s
+    ``levels`` / ``max_vals`` default to ``utils.misc``'s
     ``get_levels`` / ``get_max_vals`` on the host.  Values must be integers
     in 0..127 (int8); anything else raises ValueError."""
     from .utils.misc import get_levels, get_max_vals
@@ -70,3 +74,13 @@ def from_numpy_state(data, levels: Optional[np.ndarray] = None,
         max_vals_np=max_vals_np,
         L=L,
     )
+
+
+def from_numpy_continuous(data, device="cuda") -> torch.Tensor:
+    """Upload a continuous (n, p) table once, as the contiguous float64
+    tensor the fz_nz kernel and the conditioning engine read.  (The JAX
+    package's float16 upload for large tables was a transfer device of its
+    TPU; float64 keeps the card's decisions equal to the CPU's.)"""
+    dev = resolve_device(device)
+    arr = np.ascontiguousarray(np.asarray(data), dtype=np.float64)
+    return torch.from_numpy(arr).to(dev)

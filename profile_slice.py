@@ -1,0 +1,77 @@
+#!/usr/bin/env python3
+"""Where the time goes in a slice run of the PyTorch port on one CUDA card.
+
+    python3 profile_slice.py mi_nz|fz_nz [n p]
+
+Runs the slice LGL of ``chip_smoke.py`` (max_k=3, multi_il, 2048 x 10,000 by
+default) once to warm up, then once under ``torch.profiler`` and prints the
+stage seconds, the card's busy share (CUDA kernel and copy time over wall
+time) and the largest CUDA entries by device time; then profiles the host
+side of one univariate pass with cProfile and prints its largest entries.
+"""
+
+from __future__ import annotations
+
+import cProfile
+import io
+import json
+import pstats
+import sys
+import time
+
+import torch
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: profile_slice.py needs a CUDA card")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import card_line, fznz_table, synth_table
+    from flashweave_tpu_torch.learning.lgl import LGL
+    from flashweave_tpu_torch.ops.univariate import pw_univar_neighbors
+    from flashweave_tpu_torch.state import from_numpy_continuous, from_numpy_state
+    from flashweave_tpu_torch.utils.timing import StageTimer
+
+    test_name = sys.argv[1]
+    n, p = (int(a) for a in sys.argv[2:4]) if len(sys.argv) > 2 else (2048, 10_000)
+    fznz = test_name == "fz_nz"
+    data = fznz_table(n, p) if fznz else synth_table(n, p, 5)
+    dev = torch.device("cuda", 0)
+    kw = dict(test_name=test_name, max_k=3, parallel="multi_il", time_limit=0.0,
+              convergence_threshold=0.0, verbose=False, n_obs_min=20, device=dev)
+    print(card_line(), flush=True)
+    LGL(data, **kw)                                   # warm-up
+    timer = StageTimer(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        LGL(data, stage_timer=timer, **kw)
+        wall = time.perf_counter() - t0
+    # device-side entries only (kernels and copies): an aten:: op also
+    # carries the device time of the kernels it launched
+    cuda = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in cuda) / 1e6
+    top = sorted(cuda, key=lambda e: -e.self_device_time_total)[:12]
+    print(json.dumps({
+        "test": test_name, "n": n, "p": p, "wall_sec": wall,
+        "stages": timer.stages, "device_busy_sec": busy,
+        "device_busy_share": busy / wall,
+        "top_device": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
+                       for e in top]}), flush=True)
+
+    st = from_numpy_continuous(data, dev) if fznz else from_numpy_state(data, None, None, dev)
+    prof_host = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof_host.runcall(pw_univar_neighbors, data, test_name=test_name, alpha=0.01,
+                      hps=5, n_obs_min=20, state=st)
+    print(f"univariate pass under cProfile: {time.perf_counter() - t0:.3f} s")
+    out = io.StringIO()
+    pstats.Stats(prof_host, stream=out).sort_stats("tottime").print_stats(10)
+    print(out.getvalue())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

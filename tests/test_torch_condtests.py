@@ -1,7 +1,12 @@
 """The PyTorch port's conditional-test engine against the JAX package's, on
 the same random (X, Y, Zs, kvec) batches with k from 0 to 3.  Integers
 (df, suff) must be equal and stat within rtol 1e-12 (float64 on both sides;
-only summation order differs)."""
+only summation order differs).
+
+fz_nz: masked correlation submatrices on the same random (T, candidate)
+pairs and variable lists, with and without row chunks: n_obs exact, C
+within rtol 1e-10 / atol 1e-12; the partial-correlation tests fed the same
+C are bit-equal (the same numpy pcor DP)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -123,10 +128,17 @@ def test_cond_ctab_batch_matches_jax(reduced, S):
 
 
 def test_engine_refuses_continuous_modes():
+    """fz is not ported; fz_nz builds a continuous engine that takes the
+    scheduler's float64 host digest."""
     data = _table("mixed", 50, 8, seed=0)
-    for name, item in (("fz", "item 7"), ("fz_nz", "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            tct.CondTestEngine(data, name, 3, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tct.CondTestEngine(data, "fz", 3, device="cpu")
+    eng = tct.CondTestEngine(data, "fz_nz", 3, device="cpu")
+    assert eng.nz and not eng.discrete and eng.data.dtype == torch.float64
+    assert not (eng.cont_dev or eng.cor_device or eng.cor_onfly
+                or eng.dev_digest or eng.turbo_mxu)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        eng.masked_cor_begin([(0, 1)], [[0, 1]], plain=True)
 
 
 def test_slice_mask_matches_jax():
@@ -138,3 +150,98 @@ def test_slice_mask_matches_jax():
     got = tcont.slice_mask(torch.from_numpy(ctab), torch.from_numpy(ox),
                            torch.from_numpy(oy))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# fz_nz: masked correlations
+# ---------------------------------------------------------------------------
+
+def _cont_table(n=300, p=30, seed=8):
+    rng = np.random.default_rng(seed)
+    data = np.log1p(rng.poisson(3.0, (n, p)) + rng.random((n, p)))
+    data[:, 1::3] = 0.5 * data[:, 0::3] + 0.5 * data[:, 1::3]
+    data[rng.random((n, p)) < 0.5] = 0.0
+    return data
+
+
+def _pairs(p, B, seed):
+    """(T, candidate) pairs with variable lists [T, cand, Z_total...] of
+    1 to 12 conditioning variables (bucketed widths 8 and 16)."""
+    rng = np.random.default_rng(seed)
+    pairs, vls = [], []
+    for _ in range(B):
+        v = rng.choice(p, 2 + rng.integers(1, 13), replace=False)
+        pairs.append((int(v[0]), int(v[1])))
+        vls.append([int(x) for x in v])
+    return pairs, vls
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_masked_cor_matches_jax(chunked, monkeypatch):
+    data = _cont_table()
+    pairs, vls = _pairs(data.shape[1], 300, seed=9)
+    if chunked:
+        # 64-row chunks (the floor) over 300 rows, a non-multiple
+        monkeypatch.setattr(jct, "MCOR_ROW_BUDGET", 1)
+        monkeypatch.setattr(tct, "MCOR_ROW_BUDGET", 1)
+        jct._masked_cor_kernel._clear_cache()
+    try:
+        jeng = jct.CondTestEngine(data, "fz_nz", 3, n_obs_min=20)
+        want = jeng.masked_cor(pairs, vls)
+        want_raw = jeng.masked_cor_finish_raw(jeng.masked_cor_begin(pairs, vls))
+    finally:
+        jct._masked_cor_kernel._clear_cache()
+    teng = tct.CondTestEngine(data, "fz_nz", 3, n_obs_min=20, device="cpu")
+    got = teng.masked_cor(pairs, vls)
+    got_raw = teng.masked_cor_finish_raw(teng.masked_cor_begin(pairs, vls))
+    assert len(got) == len(want) == 300
+    for (C, n), (wC, wn), vl in zip(got, want, vls):
+        assert n == wn == teng.nz_pair_count(vl[0], vl[1])
+        assert C.shape == wC.shape
+        k = len(vl)
+        np.testing.assert_allclose(C[:k, :k], wC[:k, :k], rtol=1e-10,
+                                   atol=1e-12)
+    np.testing.assert_array_equal(got_raw[1], want_raw[1])
+    assert got_raw[0].shape == want_raw[0].shape == (300, 16, 16)
+    for i, vl in enumerate(vls):
+        k = len(vl)
+        np.testing.assert_allclose(got_raw[0][i, :k, :k],
+                                   want_raw[0][i, :k, :k], rtol=1e-10,
+                                   atol=1e-12)
+
+
+def test_fz_tests_from_cor_match_jax():
+    """Partial-correlation tests fed the same masked correlation matrix:
+    stats and p-values bit-equal, n_obs_min short-circuit included."""
+    data = _cont_table()
+    pairs, vls = _pairs(data.shape[1], 40, seed=10)
+    teng = tct.CondTestEngine(data, "fz_nz", 3, n_obs_min=75, device="cpu")
+    jeng = jct.CondTestEngine(data, "fz_nz", 3, n_obs_min=75)
+    rng = np.random.default_rng(11)
+    n_short = 0
+    for C, n_obs in teng.masked_cor(pairs, vls):
+        B = 50
+        kvec = rng.integers(0, 4, B)
+        pos_Zs = rng.integers(2, 14, (B, 3))
+        pos_X, pos_Y = np.zeros(B, np.int64), np.ones(B, np.int64)
+        got = teng.fz_tests_from_cor_raw(C, pos_X, pos_Y, pos_Zs, kvec, n_obs)
+        want = jeng.fz_tests_from_cor_raw(C, pos_X, pos_Y, pos_Zs, kvec, n_obs)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        n_short += n_obs < 75
+        res = teng.fz_tests_from_cor(C, pos_X[:2], pos_Y[:2], pos_Zs[:2],
+                                     kvec[:2], n_obs)
+        assert [r.stat for r in res] == list(got[0][:2])
+    assert 0 < n_short < 40
+
+
+def test_fz_tests_iterative_matches_jax():
+    data = _cont_table(200, 12)
+    teng = tct.CondTestEngine(data, "fz_nz", 3, n_obs_min=20,
+                              recursive_pcor=False, device="cpu")
+    jeng = jct.CondTestEngine(data, "fz_nz", 3, n_obs_min=20,
+                              recursive_pcor=False)
+    Zs_list = [(), (2,), (2, 5), (2, 5, 7)]
+    fields = lambda rs: [(r.stat, r.pval, r.df, r.suff_power) for r in rs]
+    assert fields(teng.fz_tests_iterative(0, 1, Zs_list)) == fields(
+        jeng.fz_tests_iterative(0, 1, Zs_list))

@@ -1,5 +1,6 @@
-"""K1 (the fused univariate G-test) in the PyTorch port: its plain version
-and ``level_marginals`` against the JAX package.
+"""K1 (the fused univariate G-test) and K2 (the fz_nz masked correlation) in
+the PyTorch port: their plain versions and ``level_marginals`` against the
+JAX package.
 
 Data is n=500, p=250, deliberately not a tile multiple.  The plain version
 (what the CPU wrapper runs) is held against
@@ -7,8 +8,14 @@ Data is n=500, p=250, deliberately not a tile multiple.  The plain version
   rtol 1e-12;
 - the Pallas kernel ``mi_univar_stats_pallas`` in interpret mode: integers
   exact, stat atol 2e-6 / rtol 2e-5 (the Pallas epilogue is float32).
-The CUDA kernel itself runs only on the card; ``chip_smoke.py`` holds it
-against the plain version there.
+K2's plain version (``fz_nz_stats_ref``) is held against
+- ``univariate.fz_nz_block`` in x64: N exact, NaN positions identical, r
+  rtol 1e-10 / atol 1e-12;
+- the Pallas kernel ``fz_nz_stats_pallas`` in interpret mode: N exact, r
+  atol 2e-5 on the non-degenerate columns (its moments are float32, where a
+  constant column need not give exactly zero variance).
+The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
+them against the plain versions there.
 """
 
 import numpy as np
@@ -20,7 +27,7 @@ from flashweave_tpu.ops import pallas_kernels as pk
 from flashweave_tpu.ops.contingency import pair_ctab_block
 from flashweave_tpu.ops.univariate import mi_block_stats
 from flashweave_tpu_torch.ops import kernels as K
-from flashweave_tpu_torch.state import from_numpy_state
+from flashweave_tpu_torch.state import from_numpy_continuous, from_numpy_state
 
 BLOCKS = [(0, 250, 0, 250), (25, 125, 100, 150)]   # full, ragged
 
@@ -116,7 +123,7 @@ def test_cpu_wrapper_runs_plain_version_without_counting():
     want = _ref(data, levels, maxv, 3, 1, BLOCKS[1])
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert K.launch_counts() == {"mi_univar_stats": 0}
+    assert K.launch_counts() == {"mi_univar_stats": 0, "fz_nz_stats": 0}
 
 
 def test_wrapper_rejects_other_devices():
@@ -155,3 +162,134 @@ def test_pw_univar_neighbors_matches_jax(test_name, L, nz):
                                    np.array(list(want[v].values())),
                                    rtol=1e-12, atol=0)
     np.testing.assert_array_equal(gres.suff_power, wres.suff_power)
+
+
+# ---------------------------------------------------------------------------
+# K2: fz_nz masked correlation
+# ---------------------------------------------------------------------------
+
+# degenerate columns, inside both blocks below
+ZERO, CONST, ORIG, COPY, NORIG, NEG = 101, 103, 104, 105, 106, 107
+
+
+def _cont_data(kind):
+    """(500, 250) float64 table with ~60% zeros and the degenerate columns:
+    all-zero, an exact copy and a negated copy; "dyadic" also holds a
+    column constant over its nonzero rows.  "dyadic" values are multiples of
+    1/64, so every moment sum is exact and any summation order gives the
+    same r bit for bit (the constant column's 0/0 is then certain); "sparse"
+    values are log1p of noisy counts."""
+    rng = np.random.default_rng(20 if kind == "dyadic" else 21)
+    n, p = 500, 250
+    counts = rng.poisson(3.0, (n, p)) + rng.random((n, p))
+    data = np.log1p(counts)
+    data[:, 1::3] = 0.5 * data[:, 0:p - 1:3] + 0.5 * data[:, 1::3]
+    data[rng.random((n, p)) < 0.6] = 0.0
+    if kind == "dyadic":
+        data = np.round(data * 64.0) / 64.0
+        data[:, CONST] = np.where(data[:, CONST] != 0, 1.5, 0.0)
+    data[:, ZERO] = 0.0
+    data[:, COPY] = data[:, ORIG]
+    data[:, NEG] = -data[:, NORIG]
+    return data
+
+
+def _cont_ref(data, block):
+    s, tile, ys, ylen = block
+    r, N = K.fz_nz_stats_ref(from_numpy_continuous(data, "cpu"), s, tile, ys,
+                             ylen)
+    assert r.dtype == torch.float64 and N.dtype == torch.int32
+    return r.numpy(), N.numpy()
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("kind", ["sparse", "dyadic"])
+def test_fz_nz_ref_matches_jax_block(kind, block):
+    from flashweave_tpu.ops.univariate import fz_nz_block
+
+    data = _cont_data(kind)
+    r, N = _cont_ref(data, block)
+    s, tile, ys, ylen = block
+    wr, wN = fz_nz_block(jnp.asarray(data), s, tile, ys, ylen)
+    wr, wN = np.asarray(wr), np.asarray(wN)
+    np.testing.assert_array_equal(N, wN.astype(np.int32))
+    np.testing.assert_array_equal(np.isnan(r), np.isnan(wr))
+    np.testing.assert_allclose(r, wr, rtol=1e-10, atol=1e-12)
+    # the degenerate columns give what the semantics say
+    col = lambda v: v - ys
+    row = lambda v: v - s
+    assert (N[:, col(ZERO)] == 0).all() and (r[:, col(ZERO)] == 0).all()
+    both = N[row(ORIG), col(COPY)] > 1
+    assert both and r[row(ORIG), col(COPY)] == pytest.approx(1.0, abs=1e-12)
+    assert r[row(NORIG), col(NEG)] == pytest.approx(-1.0, abs=1e-12)
+    if kind == "dyadic":
+        nan_rows = N[:, col(CONST)] > 0
+        assert nan_rows.sum() > 50
+        assert np.isnan(r[nan_rows, col(CONST)]).all()
+    assert np.abs(r[~np.isnan(r)]).max() <= 1.0
+
+
+@pytest.mark.parametrize("kind,block", [("dyadic", BLOCKS[0]),
+                                        ("sparse", BLOCKS[1])])
+def test_fz_nz_ref_matches_pallas_interpret(kind, block):
+    data = _cont_data(kind)
+    r, N = _cont_ref(data, block)
+    s, tile, ys, ylen = block
+    dj = jnp.asarray(data)
+    wr, wN = pk.fz_nz_stats_pallas(dj[:, s:s + tile], dj[:, ys:ys + ylen],
+                                   tx=128, ty=128, tn=256)
+    wr, wN = np.asarray(wr, np.float64), np.asarray(wN)
+    np.testing.assert_array_equal(N, wN.astype(np.int32))
+    degenerate = np.array([ZERO, CONST, COPY, NEG])
+    keep_x = ~np.isin(np.arange(s, s + tile), degenerate)
+    keep_y = ~np.isin(np.arange(ys, ys + ylen), degenerate)
+    sub = np.ix_(keep_x, keep_y)
+    assert np.isfinite(r[sub]).all()
+    np.testing.assert_allclose(r[sub], wr[sub], rtol=0, atol=2e-5)
+
+
+def test_fz_nz_cpu_wrapper_runs_plain_version_without_counting():
+    data = from_numpy_continuous(_cont_data("sparse"), "cpu")
+    assert data.dtype == torch.float64 and data.is_contiguous()
+    K.reset_launch_counts()
+    got = K.fz_nz_stats(data, 25, 125, 100, 150)
+    want = K.fz_nz_stats_ref(data, 25, 125, 100, 150)
+    for g, w in zip(got, want):
+        assert torch.equal(g.nan_to_num(7.0), w.nan_to_num(7.0))
+    assert K.launch_counts() == {"mi_univar_stats": 0, "fz_nz_stats": 0}
+
+
+def test_fz_nz_wrapper_rejects_other_devices():
+    t = torch.empty((4, 8), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.fz_nz_stats(t, 0, 4)
+
+
+def test_build_runs_one_nvcc_per_source_then_links(monkeypatch, tmp_path):
+    """build_library with a stand-in nvcc that writes its -o file and a
+    ptxas-style line: one compile per csrc/*.cu, one link, objects removed,
+    the library named by the source hash and reused on the next call."""
+    fake = tmp_path / "nvcc"
+    calls = tmp_path / "calls.txt"
+    fake.write_text(
+        "#!/usr/bin/env python3\n"
+        "import sys\n"
+        f"open({str(calls)!r}, 'a').write(' '.join(sys.argv[1:]) + '\\n')\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "open(out, 'w').write('x')\n"
+        "print('ptxas info    : Used 40 registers')\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(K, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(K, "BUILD_DIR", tmp_path / "build")
+    info = K.build_library()
+    lines = calls.read_text().splitlines()
+    n_src = len(list(K.SRC_DIR.glob("*.cu")))
+    assert n_src >= 2
+    assert sum(" -c " in ln for ln in lines) == n_src
+    assert sum(ln.startswith("-shared") for ln in lines) == 1
+    assert info.path.exists() and info.path.name.startswith("libfw_kernels_")
+    assert info.log.count("registers") == n_src
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == [info.path.name]
+    again = K.build_library()
+    assert again.path == info.path and again.seconds == 0.0
+    assert len(calls.read_text().splitlines()) == len(lines)

@@ -1,6 +1,7 @@
-"""The PyTorch port must run without jax: a fresh interpreter that refuses
-to import jax or jaxlib imports ``flashweave_tpu_torch`` and learns an
-mi_nz network on the CPU."""
+"""The PyTorch port must run without jax and without the JAX package: a
+fresh interpreter that refuses to import jax, jaxlib or ``flashweave_tpu``
+imports ``flashweave_tpu_torch``, normalizes a table, learns mi_nz and
+fz_nz networks on the CPU, and saves and loads a network."""
 
 import re
 import subprocess
@@ -10,12 +11,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 _SCRIPT = r"""
+import os
 import sys
+import tempfile
 
 class _NoJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError(f"jax is blocked: {name}")
+        if name.split(".")[0] in ("jax", "jaxlib", "flashweave_tpu"):
+            raise ImportError(f"blocked: {name}")
         return None
 
 sys.meta_path.insert(0, _NoJax())
@@ -28,12 +31,23 @@ base = rng.integers(0, 3, (200, 6))
 data = np.repeat(base, 5, axis=1)
 flip = rng.random(data.shape) < 0.3
 data = np.where(flip, rng.integers(0, 3, data.shape), data).astype(float)
-res = fwt.learn_network(data, sensitive=False, heterogeneous=True, max_k=3,
-                        n_obs_min=20, verbose=False, device="cpu")
-assert fwt.graph(res).n_edges() > 0
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+norm = fwt.normalize_data(data, test_name="fz_nz", verbose=False)
+assert norm.data.shape == data.shape
+for sensitive in (False, True):
+    res = fwt.learn_network(data, sensitive=sensitive, heterogeneous=True,
+                            max_k=3, n_obs_min=20, verbose=False,
+                            device="cpu")
+    g = fwt.graph(res)
+    assert g.n_edges() > 0
+    path = os.path.join(tempfile.mkdtemp(), "net.edgelist")
+    fwt.save_network(path, res)
+    back = fwt.load_network(path).graph
+    assert sorted(back.edges()) == sorted(g.edges())
+    print("NET", sensitive, g.n_edges())
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flashweave_tpu"))
 assert not bad, bad
-print("NOJAX_OK", fwt.graph(res).n_edges())
+print("NOJAX_OK")
 """
 
 
@@ -42,11 +56,13 @@ def test_port_runs_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NOJAX_OK" in proc.stdout
+    assert "NET True" in proc.stdout and "NET False" in proc.stdout
 
 
 def test_no_jax_import_in_port_sources():
     files = sorted((ROOT / "flashweave_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
-    pat = re.compile(r"^\s*(import|from)\s+jax(lib)?\b", re.M)
+    files += [ROOT / "chip_smoke.py", ROOT / "profile_slice.py"]
+    pat = re.compile(r"^\s*(import|from)\s+(jax(lib)?|flashweave_tpu)\b(?!_)",
+                     re.M)
     hits = [str(f) for f in files if pat.search(f.read_text())]
     assert not hits

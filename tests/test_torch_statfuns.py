@@ -97,3 +97,33 @@ def test_benjamini_hochberg_matches_jax(m):
     p[:50] = p[50]                                    # exact ties
     np.testing.assert_array_equal(tsf.benjamini_hochberg(p, 0.01, m),
                                   jsf.benjamini_hochberg(p, 0.01, m))
+
+
+def _cor_submatrices(seed, B, m):
+    """Random positive-definite (B, m, m) correlation matrices."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(B, m, 3 * m))
+    A[:, 1] += 0.8 * A[:, 0]                  # X and Y correlated
+    cov = A @ np.swapaxes(A, 1, 2)
+    d = np.sqrt(np.einsum("bii->bi", cov))
+    return cov / (d[:, :, None] * d[:, None, :])
+
+
+@pytest.mark.parametrize("max_k", [0, 1, 2, 3])
+def test_pcor_dp_matches_jax(max_k):
+    """Same numpy code on both sides: bit-equal for every k in 0..max_k."""
+    C = _cor_submatrices(30 + max_k, 2000, max_k + 2)
+    kvec = np.random.default_rng(max_k).integers(0, max_k + 1, 2000)
+    got = tsf.pcor_dp(C, kvec, max_k, xp=np)
+    want = jsf.pcor_dp(C, kvec, max_k, xp=np)
+    np.testing.assert_array_equal(got, want)
+    assert (np.abs(got) <= 1.0).all() and np.abs(got).max() > 0.3
+
+
+def test_pcor_iterative_matches_jax():
+    rng = np.random.default_rng(40)
+    data = rng.normal(size=(200, 6))
+    data[:, 1] += data[:, 0] + data[:, 2]
+    for Zs in ((), (2,), (2, 3), (2, 3, 4)):
+        assert tsf.pcor_iterative(0, 1, Zs, data) == jsf.pcor_iterative(
+            0, 1, Zs, data)

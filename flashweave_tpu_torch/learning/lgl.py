@@ -6,10 +6,11 @@ heuristics), the univariate stage, the conditional neighborhood search and
 weight assembly into the final symmetric graph.
 
 The table is uploaded to the device once (:mod:`flashweave_tpu_torch.state`)
-and serves both the univariate kernel and the conditioning engine: int8 with
-its levels, max_vals and level marginals for the discrete tests (levels are
-counted on the host by ``utils.misc.get_levels`` / ``get_max_vals``), one
-contiguous float64 tensor for fz_nz.
+and serves both the univariate kernel and the conditioning engine: int8
+(int16 when a value exceeds 127) with its levels, max_vals and level
+marginals for the discrete tests (levels are counted on the host by
+``utils.misc.get_levels`` / ``get_max_vals``), one contiguous float64
+tensor for fz_nz.
 
 Execution modes on one device:
 - parallel="single" / "single_il": one target at a time (exact sequential

@@ -8,10 +8,22 @@
   ``pallas_kernels.py:fz_nz_moments`` (through ``fz_nz_block_pallas``).
   :func:`fz_nz_stats` is its wrapper, :func:`fz_nz_stats_ref` its plain
   PyTorch version (``univariate.fz_nz_block``).
+- K3, the contingency planes (``csrc/mi_pair_ctabs.cu``), replaces
+  ``pallas_kernels.py:mi_pair_ctabs``.  :func:`pair_ctab_planes` is its
+  wrapper, :func:`pair_ctab_planes_ref` its plain version
+  (``contingency.pair_ctab_block`` in the plane layout).
+- K4, K1's function with the joint counts on the int8 tensor cores
+  (``csrc/mi_univar_stats_planes.cu``), replaces
+  ``pallas_kernels.py:mi_univar_stats_planes``.
+  :func:`mi_univar_stats_planes` is its wrapper (K1's signature, L = 2..127),
+  :func:`mi_univar_stats_planes_ref` its plain version (indicator planes, one
+  product, the level-0 cells rebuilt from the margins).  K3 and K4 share the
+  tile loop ``csrc/int8_indicator_mma.cuh``.
 - On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
   tensor it runs the plain version.  Each counts its launches in
   ``<wrapper>.launches``; :func:`launch_counts` reports them all.
-- The kernels build at first use with ``nvcc`` from ``csrc/*.cu`` into
+- The kernels build at first use with ``nvcc`` from ``csrc/*.cu`` (and the
+  headers they include, ``csrc/*.cuh``) into
   ``flashweave_tpu_torch/_build/`` as one shared library with a plain C
   interface, named after a hash of the sources and flags, and load through
   ``ctypes``.  Nothing is built or imported when this module is imported.
@@ -39,6 +51,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # L supported by K1 (its template instantiations)
 K1_LEVELS = range(2, 9)
+# L supported by K3 and K4: int8 levels, with -1 left free as the pad value
+PLANES_LEVELS = range(2, 128)
+# K4 keeps one pair tile's (L-1)^2 counts in shared memory up to this size
+K4_SMEM_STORE_BYTES = 200 * 1024
+# ... and past it in a scratch buffer of at most this size
+K4_SCRATCH_BYTES = 1 << 30
 
 
 @dataclass
@@ -69,7 +87,7 @@ def build_library() -> BuildInfo:
     rename the library into place."""
     sources = sorted(SRC_DIR.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(SRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_DIR / f"libfw_kernels_{h.hexdigest()[:16]}.so"
@@ -120,6 +138,13 @@ def load_library():
         lib.fw_fz_nz_stats.argtypes = [
             ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr]
         lib.fw_fz_nz_stats.restype = i32
+        lib.fw_mi_univar_stats_planes.argtypes = [
+            ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, i32, i32, f64,
+            f64, ptr, ptr, ptr, ptr, i32, i32, ptr, i32, ptr]
+        lib.fw_mi_univar_stats_planes.restype = i32
+        lib.fw_mi_pair_ctabs.argtypes = [
+            ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr, ptr]
+        lib.fw_mi_pair_ctabs.restype = i32
         lib.fw_cuda_error_string.argtypes = [i32]
         lib.fw_cuda_error_string.restype = ctypes.c_char_p
         _loaded[key] = (lib, info)
@@ -163,6 +188,45 @@ def mi_univar_stats_ref(dataT, marg, levels, max_vals, start, tile, L,
     return stat, df.to(torch.int32), n_obs.to(torch.int32), suff
 
 
+def _check_block(who, dataT, L, supported, start, tile, y_start, y_len):
+    """Checks shared by the wrappers of K1, K3 and K4 on a device table."""
+    p, n = dataT.shape
+    if dataT.device.type != "cuda":
+        raise ValueError(f"unsupported device {dataT.device}")
+    if dataT.dtype != torch.int8 or not dataT.is_contiguous():
+        raise ValueError(
+            f"{who} needs dataT as a contiguous int8 (p, n) tensor")
+    if L not in supported:
+        raise ValueError(f"{who} supports L in {supported.start}.."
+                         f"{supported.stop - 1}, got L={L}")
+    if not (0 <= start and start + tile <= p and 0 <= y_start
+            and y_start + y_len <= p):
+        raise ValueError("X-block or Y-slab out of range")
+    if tile == 0 or y_len == 0 or n == 0:
+        raise ValueError("empty X-block, Y-slab or table")
+
+
+def _check_stats_args(dataT, marg, levels, max_vals, L, nz):
+    """Checks of the G-test inputs that K1 and K4 take beside the table."""
+    p = dataT.shape[0]
+    if nz not in (0, 1, 2) or (nz == 2 and L != 3):
+        raise ValueError(f"invalid nz={nz} for L={L}")
+    for name, t, shape in (("marg", marg, (L, p)), ("levels", levels, (p,)),
+                           ("max_vals", max_vals, (p,))):
+        if (t.dtype != torch.int32 or tuple(t.shape) != shape
+                or not t.is_contiguous() or t.device != dataT.device):
+            raise ValueError(
+                f"{name} must be a contiguous int32 {shape} tensor on "
+                f"{dataT.device}")
+
+
+def _stats_outputs(tile, y_len, dev):
+    """Empty (stat, df, n_obs, suff) of a (tile, y_len) block."""
+    return tuple(torch.empty((tile, y_len), dtype=dt, device=dev)
+                 for dt in (torch.float64, torch.int32, torch.int32,
+                            torch.bool))
+
+
 def mi_univar_stats(dataT, marg, levels, max_vals, start, tile, L, y_start=0,
                     y_len=None, nz=1, hps=5.0, n_obs_min=0.0):
     """Univariate mi / mi_nz G-test of the X-block [start, start+tile)
@@ -183,34 +247,12 @@ def mi_univar_stats(dataT, marg, levels, max_vals, start, tile, L, y_start=0,
     if dataT.device.type == "cpu":
         return mi_univar_stats_ref(dataT, marg, levels, max_vals, start, tile,
                                    L, y_start, y_len, nz, hps, n_obs_min)
-    if dataT.device.type != "cuda":
-        raise ValueError(f"unsupported device {dataT.device}")
-    if dataT.dtype != torch.int8 or not dataT.is_contiguous():
-        raise ValueError("K1 needs dataT as a contiguous int8 (p, n) tensor")
-    if L not in K1_LEVELS:
-        raise ValueError(f"K1 supports L in 2..8, got L={L}")
-    if nz not in (0, 1, 2) or (nz == 2 and L != 3):
-        raise ValueError(f"invalid nz={nz} for L={L}")
-    for name, t, shape in (("marg", marg, (L, p)), ("levels", levels, (p,)),
-                           ("max_vals", max_vals, (p,))):
-        if (t.dtype != torch.int32 or tuple(t.shape) != shape
-                or not t.is_contiguous() or t.device != dataT.device):
-            raise ValueError(
-                f"{name} must be a contiguous int32 {shape} tensor on "
-                f"{dataT.device}")
-    if not (0 <= start and start + tile <= p and 0 <= y_start
-            and y_start + y_len <= p):
-        raise ValueError("X-block or Y-slab out of range")
-    if tile == 0 or y_len == 0 or n == 0:
-        raise ValueError("empty X-block, Y-slab or table")
-    dev = dataT.device
-    stat = torch.empty((tile, y_len), dtype=torch.float64, device=dev)
-    df = torch.empty((tile, y_len), dtype=torch.int32, device=dev)
-    nobs = torch.empty((tile, y_len), dtype=torch.int32, device=dev)
-    suff = torch.empty((tile, y_len), dtype=torch.bool, device=dev)
+    _check_block("K1", dataT, L, K1_LEVELS, start, tile, y_start, y_len)
+    _check_stats_args(dataT, marg, levels, max_vals, L, nz)
+    stat, df, nobs, suff = _stats_outputs(tile, y_len, dataT.device)
     lib, _ = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dataT.device):
+        stream = torch.cuda.current_stream(dataT.device).cuda_stream
         err = lib.fw_mi_univar_stats(
             dataT.data_ptr(), n, p, start, tile, y_start, y_len,
             marg.data_ptr(), levels.data_ptr(), max_vals.data_ptr(), L,
@@ -222,6 +264,180 @@ def mi_univar_stats(dataT, marg, levels, max_vals, start, tile, L, y_start=0,
 
 
 mi_univar_stats.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4: level-indicator products on the int8 tensor cores
+# ---------------------------------------------------------------------------
+
+def _pad2(x, rows, cols, fill):
+    """``x`` padded at the end of both axes to multiples of rows / cols."""
+    r, c = x.shape
+    out = torch.full((r + (-r) % rows, c + (-c) % cols), fill, dtype=x.dtype,
+                     device=x.device)
+    out[:r, :c] = x
+    return out
+
+
+def x_indicator_planes(dataT, L, tx, tn):
+    """(p/tx, K*tx, n_pad) int8 packed X indicator planes of a (p, n) table,
+    K = L - 1 (the layout of the JAX package's
+    ``pallas_kernels.x_indicator_planes``).
+
+    Tile i, row ia*tx + t, column r holds 1 iff dataT[i*tx + t, r] == ia + 1.
+    Variables and samples are padded with -1, which matches no level."""
+    K = L - 1
+    d = _pad2(dataT.to(torch.int8), tx, tn, -1)
+    p_pad, n_pad = d.shape
+    lv = torch.arange(1, L, dtype=torch.int8, device=d.device)
+    planes = d.view(p_pad // tx, 1, tx, n_pad) == lv.view(1, K, 1, 1)
+    return planes.to(torch.int8).reshape(p_pad // tx, K * tx, n_pad)
+
+
+def y_indicator_planes(data, L, ty, tn):
+    """(n_pad, p/ty * K*ty) int8 packed Y indicator planes of an (n, p)
+    table (``pallas_kernels.y_indicator_planes``).
+
+    Column j*K*ty + ib*ty + c holds 1 iff data[r, j*ty + c] == ib + 1."""
+    K = L - 1
+    d = _pad2(data.to(torch.int8), tn, ty, -1)
+    n_pad, p_pad = d.shape
+    lv = torch.arange(1, L, dtype=torch.int8, device=d.device)
+    planes = d.view(n_pad, p_pad // ty, 1, ty) == lv.view(1, 1, K, 1)
+    return planes.to(torch.int8).reshape(n_pad, (p_pad // ty) * K * ty)
+
+
+def _planes_tile(levels: int) -> int:
+    """Side of a K3 / K4 pair tile whose product with ``levels`` indicator
+    levels a side is at most 128 x 128, i.e. one sweep of the tile loop."""
+    return min(128, max(16, 128 // levels // 16 * 16))
+
+
+def k4_tile(L: int):
+    """(bx, by, in_scratch): K4's pair tile at L levels.  The tile's
+    (L-1)^2 * bx * by int32 counts stay in shared memory while they fit in
+    ``K4_SMEM_STORE_BYTES`` (16 x 8 tiles up to L = 21); past that they go
+    to a scratch buffer (``in_scratch``)."""
+    K = L - 1
+    side = _planes_tile(K)
+    for bx, by in ((side, side), (16, 8)):
+        if 4 * K * K * bx * by <= K4_SMEM_STORE_BYTES:
+            return bx, by, False
+    return 16, 8, True
+
+
+def pair_ctab_planes_ref(dataT, start, tile, L, y_start=0, y_len=None):
+    """Plain PyTorch version of K3: ``contingency.pair_ctab_block`` of the
+    X-block [start, start+tile) against the Y-slab [y_start, y_start+y_len),
+    laid out as (L*L, tile, y_len) int32 planes (plane a*L + b counts the
+    rows with X == a and Y == b)."""
+    ct = pair_ctab_block(dataT.T, start, tile, L, y_start, y_len)
+    return ct.permute(2, 3, 0, 1).reshape(L * L, tile, -1).to(torch.int32)
+
+
+def pair_ctab_planes(dataT, start, tile, L, y_start=0, y_len=None):
+    """All L*L contingency planes of the X-block [start, start+tile) against
+    the Y-slab [y_start, y_start+y_len) of a (p, n) int8 table: (L*L, tile,
+    y_len) int32.  CUDA tensors run K3 (L = 2..127); CPU tensors run the
+    plain version."""
+    p, n = dataT.shape
+    if y_len is None:
+        y_len = p
+    if dataT.device.type == "cpu":
+        return pair_ctab_planes_ref(dataT, start, tile, L, y_start, y_len)
+    _check_block("K3", dataT, L, PLANES_LEVELS, start, tile, y_start, y_len)
+    planes = torch.empty((L * L, tile, y_len), dtype=torch.int32,
+                         device=dataT.device)
+    side = _planes_tile(L)
+    lib, _ = load_library()
+    with torch.cuda.device(dataT.device):
+        stream = torch.cuda.current_stream(dataT.device).cuda_stream
+        err = lib.fw_mi_pair_ctabs(dataT.data_ptr(), n, start, tile, y_start,
+                                   y_len, L, side, side, planes.data_ptr(),
+                                   stream)
+    _check_cuda_error(lib, err, "pair_ctab_planes launch")
+    pair_ctab_planes.launches += 1
+    return planes
+
+
+pair_ctab_planes.launches = 0
+
+
+def mi_univar_stats_planes_ref(dataT, marg, levels, max_vals, start, tile, L,
+                               y_start=0, y_len=None, nz=1, hps=5.0,
+                               n_obs_min=0.0):
+    """Plain PyTorch version of K4: the X-block's and Y-slab's indicator
+    planes, one integer-exact float64 product for the (L-1)^2 joint counts,
+    the level-0 row, column and corner rebuilt from the margins ``marg`` and
+    n (as the JAX package's ``_mi_epilogue`` does), then
+    ``univariate.mi_block_stats``.  Returns (stat float64, df int32, n_obs
+    int32, suff bool), each (tile, y_len)."""
+    from .univariate import mi_block_stats
+
+    p, n = dataT.shape
+    if y_len is None:
+        y_len = p
+    K = L - 1
+    f64 = torch.float64
+    xp = x_indicator_planes(dataT[start:start + tile], L, tile, 1)[0]
+    yp = y_indicator_planes(dataT[y_start:y_start + y_len].T, L, y_len, 1)
+    joint = (xp.to(f64) @ yp.to(f64)).view(K, tile, K, y_len)
+    joint = joint.permute(1, 3, 0, 2)                 # (tile, y_len, K, K)
+    mx = marg[1:, start:start + tile].T.to(f64)       # (tile, K)
+    my = marg[1:, y_start:y_start + y_len].T.to(f64)  # (y_len, K)
+    ctab = torch.empty((tile, y_len, L, L), dtype=f64, device=dataT.device)
+    ctab[..., 1:, 1:] = joint
+    ctab[..., 1:, 0] = mx[:, None, :] - joint.sum(dim=-1)
+    ctab[..., 0, 1:] = my[None, :, :] - joint.sum(dim=-2)
+    ctab[..., 0, 0] = (n - mx.sum(dim=1)[:, None] - my.sum(dim=1)[None, :]
+                       + joint.sum(dim=(-2, -1)))
+    stat, df, n_obs, suff = mi_block_stats(
+        ctab, levels[start:start + tile], levels[y_start:y_start + y_len],
+        max_vals[start:start + tile], max_vals[y_start:y_start + y_len],
+        hps, n_obs_min, nz, L)
+    return stat, df.to(torch.int32), n_obs.to(torch.int32), suff
+
+
+def mi_univar_stats_planes(dataT, marg, levels, max_vals, start, tile, L,
+                           y_start=0, y_len=None, nz=1, hps=5.0,
+                           n_obs_min=0.0):
+    """K1's function (:func:`mi_univar_stats`, same arguments and results)
+    with the joint counts on the int8 tensor cores, for L = 2..127.  CUDA
+    tensors run K4; CPU tensors run the plain version."""
+    p, n = dataT.shape
+    if y_len is None:
+        y_len = p
+    if dataT.device.type == "cpu":
+        return mi_univar_stats_planes_ref(dataT, marg, levels, max_vals, start,
+                                          tile, L, y_start, y_len, nz, hps,
+                                          n_obs_min)
+    _check_block("K4", dataT, L, PLANES_LEVELS, start, tile, y_start, y_len)
+    _check_stats_args(dataT, marg, levels, max_vals, L, nz)
+    dev = dataT.device
+    stat, df, nobs, suff = _stats_outputs(tile, y_len, dev)
+    bx, by, in_scratch = k4_tile(L)
+    blocks = -(-tile // bx) * -(-y_len // by)
+    scratch = None
+    if in_scratch:
+        per_block = (L - 1) ** 2 * bx * by
+        blocks = max(1, min(blocks, K4_SCRATCH_BYTES // (4 * per_block)))
+        scratch = torch.empty(blocks * per_block, dtype=torch.int32,
+                              device=dev)
+    lib, _ = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fw_mi_univar_stats_planes(
+            dataT.data_ptr(), n, p, start, tile, y_start, y_len,
+            marg.data_ptr(), levels.data_ptr(), max_vals.data_ptr(), L,
+            int(nz), float(hps), float(n_obs_min), stat.data_ptr(),
+            df.data_ptr(), nobs.data_ptr(), suff.data_ptr(), bx, by,
+            None if scratch is None else scratch.data_ptr(), blocks, stream)
+    _check_cuda_error(lib, err, "mi_univar_stats_planes launch")
+    mi_univar_stats_planes.launches += 1
+    return stat, df, nobs, suff
+
+
+mi_univar_stats_planes.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +492,8 @@ def fz_nz_stats(data, start, tile, y_start=0, y_len=None):
 
 fz_nz_stats.launches = 0
 
-_WRAPPERS = (mi_univar_stats, fz_nz_stats)
+_WRAPPERS = (mi_univar_stats, fz_nz_stats, pair_ctab_planes,
+             mi_univar_stats_planes)
 
 
 def reset_launch_counts() -> None:

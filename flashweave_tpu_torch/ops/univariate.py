@@ -6,8 +6,14 @@ blocks against triangle Y-slabs.  Each block's statistics come from a
 hand-written CUDA kernel on the card and from its plain PyTorch version on
 the CPU:
 
-- mi / mi_nz: (stat, df, n_obs, suff) from the fused G-test
-  (:func:`..ops.kernels.mi_univar_stats`, K1);
+- mi / mi_nz: (stat, df, n_obs, suff) from the fused G-test, chosen from
+  the table's level count L before any launch (:func:`mi_block_fn`): K1
+  (:func:`..ops.kernels.mi_univar_stats`) for L = 2..8, K4
+  (:func:`..ops.kernels.mi_univar_stats_planes`, the joint counts on the
+  int8 tensor cores) for L = 9..127, and for L >= 128 the plain
+  pair-table route (:func:`..ops.kernels.mi_univar_stats_ref`, the JAX
+  package's XLA route there) on an int16 table, with the tile cut so that
+  one block's float64 tables stay under ~1 GB (:func:`_pair_table_tile`);
 - fz_nz: the masked Pearson r and the joint nonzero count N
   (:func:`..ops.kernels.fz_nz_stats`, K2; plain version :func:`fz_nz_block`).
 
@@ -28,6 +34,9 @@ import numpy as np
 import torch
 
 from . import statfuns as sf
+from .kernels import (K1_LEVELS, PLANES_LEVELS, fz_nz_stats, mi_univar_stats,
+                      mi_univar_stats_planes, mi_univar_stats_ref,
+                      pair_ctab_planes)
 from ..utils.misc import is_zero_adjusted, isdiscrete
 
 
@@ -84,6 +93,33 @@ def mi_block_stats(ctab: torch.Tensor, levels_x, levels_y, maxv_x, maxv_y,
     stat = torch.where(suff, stat, 0.0)
     df = torch.where(suff, df, 0)
     return stat, df, n_obs, suff
+
+
+def mi_planes_stats(planes: torch.Tensor, levels_x, levels_y, maxv_x, maxv_y,
+                    hps: float, n_obs_min: float, nz, L: int):
+    """:func:`mi_block_stats` on (L*L, t, q) int32 contingency planes (K3's
+    layout, plane a*L + b), as float64 tables."""
+    t, q = planes.shape[1:]
+    ctab = planes.view(L, L, t, q).permute(2, 3, 0, 1).to(torch.float64)
+    return mi_block_stats(ctab, levels_x, levels_y, maxv_x, maxv_y, hps,
+                          n_obs_min, nz, L)
+
+
+def mi_planes_block(dataT, marg, levels, max_vals, start, tile, L, y_start=0,
+                    y_len=None, nz=1, hps=5.0, n_obs_min=0.0):
+    """The "planes" block route of the mi / mi_nz pass, with K1's signature:
+    all L*L contingency planes of the block from K3
+    (:func:`..ops.kernels.pair_ctab_planes`), then :func:`mi_planes_stats`.
+    ``marg`` is unused (the planes hold every cell).  Returns (stat float64,
+    df int32, n_obs int32, suff bool), each (tile, y_len)."""
+    if y_len is None:
+        y_len = dataT.shape[0]
+    planes = pair_ctab_planes(dataT, start, tile, L, y_start, y_len)
+    stat, df, n_obs, suff = mi_planes_stats(
+        planes, levels[start:start + tile], levels[y_start:y_start + y_len],
+        max_vals[start:start + tile], max_vals[y_start:y_start + y_len],
+        hps, n_obs_min, nz, L)
+    return stat, df.to(torch.int32), n_obs.to(torch.int32), suff
 
 
 def fz_nz_block(data: torch.Tensor, start: int, tile: int, y_start: int = 0,
@@ -223,14 +259,33 @@ class UnivarResult:
         return nbr
 
 
+def mi_block_fn(L: int):
+    """The default block function of the mi / mi_nz pass for a table of L
+    levels: K1 for L <= 8, K4 for L = 9..127 (as the JAX package runs its
+    Pallas kernel for every L < 128), the plain pair-table route past that
+    (as the JAX package takes its XLA route)."""
+    if L < K1_LEVELS.stop:
+        return mi_univar_stats
+    if L < PLANES_LEVELS.stop:
+        return mi_univar_stats_planes
+    return mi_univar_stats_ref
+
+
+# one block's float64 pair tables on the plain pair-table route (L >= 128)
+PAIR_TABLE_BYTES = 1 << 30
+
+
+def _pair_table_tile(tile_sz: int, L: int, p: int) -> int:
+    """X-block size of the plain pair-table route: at most ``tile_sz``, and
+    small enough that a (tile, p, L, L) float64 table fits PAIR_TABLE_BYTES."""
+    return max(1, min(tile_sz, PAIR_TABLE_BYTES // (8 * L * L * p)))
+
+
 def _mi_pass(data, test_name, hps, n_obs_min, levels, max_vals, tile_sz,
              state, device, block_fn):
     """(stats, pvals, suff) of the mi / mi_nz pass (reference:
-    src/tests.jl:28-103): K1 blocks, condensed, float64 G-test p-values."""
-    from .kernels import mi_univar_stats
-
-    if block_fn is None:
-        block_fn = mi_univar_stats
+    src/tests.jl:28-103): kernel blocks, condensed, float64 G-test
+    p-values."""
     n, p = data.shape
     nz = int(is_zero_adjusted(test_name))
     n_pairs = p * (p - 1) // 2
@@ -239,6 +294,10 @@ def _mi_pass(data, test_name, hps, n_obs_min, levels, max_vals, tile_sz,
 
         state = from_numpy_state(data, levels, max_vals, device)
     L = state.L
+    if block_fn is None:
+        block_fn = mi_block_fn(L)
+    if L >= PLANES_LEVELS.stop:
+        tile_sz = _pair_table_tile(tile_sz, L, p)
     if nz and L == 3 and (state.max_vals_np > 1).all():
         # 3-state nz flag: 2 = nz-UNIFORM (every variable 3-level)
         nz = 2
@@ -271,8 +330,6 @@ def _fz_nz_pass(data, n_obs_min, tile_sz, table, device, block_fn):
     """(stats, pvals, suff) of the fz_nz pass: K2 blocks, condensed,
     n_obs_min forcing (reference src/tests.jl:121-125), float64 Fisher-z
     p-values."""
-    from .kernels import fz_nz_stats
-
     if block_fn is None:
         block_fn = fz_nz_stats
     p = data.shape[1]
@@ -324,9 +381,14 @@ def pw_univar_neighbors(
     :class:`flashweave_tpu_torch.state.DiscreteState` for mi / mi_nz, the
     float64 tensor of :func:`..state.from_numpy_continuous` for fz_nz.
     Without it the table is uploaded here.  ``block_fn`` replaces the block
-    function (default the kernel wrapper, :func:`..ops.kernels.mi_univar_stats`
-    or :func:`..ops.kernels.fz_nz_stats`; the plain ``*_ref`` version is the
-    one alternative, used to check the kernel's decisions on the card).
+    function.  fz_nz: default :func:`..ops.kernels.fz_nz_stats` (K2), or its
+    plain ``fz_nz_stats_ref``.  mi / mi_nz: default :func:`mi_block_fn`
+    (K1 for L <= 8, K4 for L = 9..127, plain past that); the choices are
+    :func:`..ops.kernels.mi_univar_stats` (K1, L = 2..8),
+    :func:`..ops.kernels.mi_univar_stats_planes` (K4, L = 2..127),
+    :func:`mi_planes_block` (K3's planes, then :func:`mi_planes_stats`) and
+    the plain :func:`..ops.kernels.mi_univar_stats_ref`, used to check the
+    kernels' decisions on the card.
     """
     p = data.shape[1]
     n_pairs = p * (p - 1) // 2

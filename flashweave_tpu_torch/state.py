@@ -4,8 +4,9 @@ FlashWeave learns no weights.  What a run keeps on the device is the data
 table; the univariate kernel and the conditioning engine both read this one
 upload.
 
-- Discrete tests (mi, mi_nz): the int8 table with its per-variable
-  ``levels``, ``max_vals`` and level marginals (:func:`from_numpy_state`).
+- Discrete tests (mi, mi_nz): the int8 table (int16 when a value exceeds
+  127) with its per-variable ``levels``, ``max_vals`` and level marginals
+  (:func:`from_numpy_state`).
 - Continuous tests (fz_nz): one contiguous float64 (n, p) tensor
   (:func:`from_numpy_continuous`).
 
@@ -27,8 +28,8 @@ from .ops.kernels import level_marginals
 
 @dataclass
 class DiscreteState:
-    data: torch.Tensor        # (n, p) int8, values in 0..L-1
-    dataT: torch.Tensor       # (p, n) int8, contiguous: the kernel's layout
+    data: torch.Tensor        # (n, p) int8 (int16 past 127), values 0..L-1
+    dataT: torch.Tensor       # (p, n) contiguous: the kernels' layout
     levels: torch.Tensor      # (p,) int32 distinct values per variable
     max_vals: torch.Tensor    # (p,) int32 largest value per variable
     marg: torch.Tensor        # (L, p) int32 per-variable level counts
@@ -48,7 +49,9 @@ def from_numpy_state(data, levels: Optional[np.ndarray] = None,
 
     ``levels`` / ``max_vals`` default to ``utils.misc``'s
     ``get_levels`` / ``get_max_vals`` on the host.  Values must be integers
-    in 0..127 (int8); anything else raises ValueError."""
+    in 0..32767, anything else raises ValueError.  The table is int8, the
+    kernels' type, when its values fit in 0..127, else int16 (which only
+    the plain pair-table route of the univariate pass reads)."""
     from .utils.misc import get_levels, get_max_vals
 
     dev = resolve_device(device)
@@ -57,13 +60,14 @@ def from_numpy_state(data, levels: Optional[np.ndarray] = None,
         levels = get_levels(data)
     if max_vals is None:
         max_vals = get_max_vals(data)
-    di8 = data.astype(np.int8)
-    if di8.min(initial=0) < 0 or not np.array_equal(di8, data):
-        raise ValueError("discrete tables must hold integers in 0..127")
+    dtype = np.int8 if data.max(initial=0) <= 127 else np.int16
+    dint = data.astype(dtype)
+    if dint.min(initial=0) < 0 or not np.array_equal(dint, data):
+        raise ValueError("discrete tables must hold integers in 0..32767")
     levels_np = np.asarray(levels, dtype=np.int32)
     max_vals_np = np.asarray(max_vals, dtype=np.int32)
     L = int(max_vals_np.max(initial=0)) + 1
-    data_t = torch.from_numpy(di8).to(dev)
+    data_t = torch.from_numpy(dint).to(dev)
     return DiscreteState(
         data=data_t,
         dataT=data_t.T.contiguous(),

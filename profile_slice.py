@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where the time goes in a slice run of the PyTorch port on one CUDA card.
 
-    python3 profile_slice.py mi_nz|fz_nz [n p]
+    python3 profile_slice.py mi|mi_nz|fz_nz [n p [levels]]
 
 Runs the slice LGL of ``chip_smoke.py`` (max_k=3, multi_il, 2048 x 10,000 by
-default) once to warm up, then once under ``torch.profiler`` and prints the
+default; a discrete table has 3 levels unless ``levels`` says otherwise,
+e.g. ``profile_slice.py mi 2048 10000 12`` for phase 6) once to warm up, then once under ``torch.profiler`` and prints the
 stage seconds, the card's busy share (CUDA kernel and copy time over wall
 time) and the largest CUDA entries by device time; then profiles the host
 side of one univariate pass with cProfile and prints its largest entries.
@@ -36,8 +37,9 @@ def main() -> int:
 
     test_name = sys.argv[1]
     n, p = (int(a) for a in sys.argv[2:4]) if len(sys.argv) > 2 else (2048, 10_000)
+    levels = int(sys.argv[4]) if len(sys.argv) > 4 else 3
     fznz = test_name == "fz_nz"
-    data = fznz_table(n, p) if fznz else synth_table(n, p, 5)
+    data = fznz_table(n, p) if fznz else synth_table(n, p, 5, levels=levels)
     dev = torch.device("cuda", 0)
     kw = dict(test_name=test_name, max_k=3, parallel="multi_il", time_limit=0.0,
               convergence_threshold=0.0, verbose=False, n_obs_min=20, device=dev)
@@ -55,7 +57,7 @@ def main() -> int:
     busy = sum(e.self_device_time_total for e in cuda) / 1e6
     top = sorted(cuda, key=lambda e: -e.self_device_time_total)[:12]
     print(json.dumps({
-        "test": test_name, "n": n, "p": p, "wall_sec": wall,
+        "test": test_name, "n": n, "p": p, "levels": levels, "wall_sec": wall,
         "stages": timer.stages, "device_busy_sec": busy,
         "device_busy_share": busy / wall,
         "top_device": [[e.key[:60], e.count, e.self_device_time_total / 1e3]

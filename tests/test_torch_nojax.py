@@ -1,7 +1,10 @@
 """The PyTorch port must run without jax and without the JAX package: a
 fresh interpreter that refuses to import jax, jaxlib or ``flashweave_tpu``
 imports ``flashweave_tpu_torch``, normalizes a table, learns mi_nz and
-fz_nz networks on the CPU, and saves and loads a network."""
+fz_nz networks on the CPU, saves and loads a network, and runs the
+univariate pass of a 10-level table through the default block function
+(K4's plain version) and the planes route (K3's, then
+``mi_planes_stats``)."""
 
 import re
 import subprocess
@@ -44,6 +47,19 @@ for sensitive in (False, True):
     back = fwt.load_network(path).graph
     assert sorted(back.edges()) == sorted(g.edges())
     print("NET", sensitive, g.n_edges())
+from flashweave_tpu_torch.ops import univariate as U
+base = rng.integers(0, 10, (800, 6))
+ten = np.repeat(base, 5, axis=1)
+flip = rng.random(ten.shape) < 0.3
+ten = np.where(flip, rng.integers(0, 10, ten.shape), ten).astype(float)
+kw = dict(test_name="mi", n_obs_min=20, device="cpu")
+default = U.pw_univar_neighbors(ten, **kw)
+planes = U.pw_univar_neighbors(ten, block_fn=U.mi_planes_block, **kw)
+assert [list(default[v]) for v in default] == [list(planes[v]) for v in planes]
+assert sum(map(len, planes.values())) > 0
+res = fwt.learn_network(ten, sensitive=False, normalize=False, max_k=1,
+                        verbose=False, device="cpu")
+print("PLANES", fwt.graph(res).n_edges())
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flashweave_tpu"))
 assert not bad, bad
@@ -57,6 +73,7 @@ def test_port_runs_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NOJAX_OK" in proc.stdout
     assert "NET True" in proc.stdout and "NET False" in proc.stdout
+    assert "PLANES" in proc.stdout
 
 
 def test_no_jax_import_in_port_sources():

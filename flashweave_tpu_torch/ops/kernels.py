@@ -17,8 +17,9 @@
   ``pallas_kernels.py:mi_univar_stats_planes``.
   :func:`mi_univar_stats_planes` is its wrapper (K1's signature, L = 2..127),
   :func:`mi_univar_stats_planes_ref` its plain version (indicator planes, one
-  product, the level-0 cells rebuilt from the margins).  K3 and K4 share the
-  tile loop ``csrc/int8_indicator_mma.cuh``.
+  product, the level-0 cells rebuilt from the margins).  K4 runs the tile
+  loop ``csrc/int8_indicator_mma.cuh``, K3 the pipelined one
+  ``csrc/int8_indicator_pipe.cuh``.
 - On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
   tensor it runs the plain version.  Each counts its launches in
   ``<wrapper>.launches``; :func:`launch_counts` reports them all.
@@ -51,8 +52,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # L supported by K1 (its template instantiations)
 K1_LEVELS = range(2, 9)
-# L supported by K3 and K4: int8 levels, with -1 left free as the pad value
+# L supported by K3 and K4: int8 levels 0..126, leaving pad values free
+# (-1 for K4, 127 for K3)
 PLANES_LEVELS = range(2, 128)
+# K3 sums 128 per joint match in int32 (int8_indicator_pipe.cuh)
+K3_MAX_SAMPLES = 1 << 24
 # K4 keeps one pair tile's (L-1)^2 counts in shared memory up to this size
 K4_SMEM_STORE_BYTES = 200 * 1024
 # ... and past it in a scratch buffer of at most this size
@@ -66,7 +70,7 @@ class BuildInfo:
     log: str            # nvcc's output (ptxas register / spill report)
 
 
-_loaded: dict = {}      # process-wide: library path -> (CDLL, BuildInfo)
+_library = None     # process-wide (CDLL, BuildInfo), set by the first load
 
 
 def _nvcc() -> str:
@@ -123,11 +127,14 @@ def build_library() -> BuildInfo:
 
 
 def load_library():
-    """(CDLL, BuildInfo) of the kernel library, building it if needed."""
-    info = build_library()
-    key = str(info.path)
-    if key not in _loaded:
-        lib = ctypes.CDLL(key)
+    """(CDLL, BuildInfo) of the kernel library, built (or found) at the
+    first call of the process.  Later calls return it without hashing the
+    sources again, so a launch costs no file reads; an edit to ``csrc/``
+    takes effect in a new process."""
+    global _library
+    if _library is None:
+        info = build_library()
+        lib = ctypes.CDLL(str(info.path))
         ptr = ctypes.c_void_p
         i32 = ctypes.c_int
         f64 = ctypes.c_double
@@ -143,12 +150,12 @@ def load_library():
             f64, ptr, ptr, ptr, ptr, i32, i32, ptr, i32, ptr]
         lib.fw_mi_univar_stats_planes.restype = i32
         lib.fw_mi_pair_ctabs.argtypes = [
-            ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr, ptr]
+            ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr]
         lib.fw_mi_pair_ctabs.restype = i32
         lib.fw_cuda_error_string.argtypes = [i32]
         lib.fw_cuda_error_string.restype = ctypes.c_char_p
-        _loaded[key] = (lib, info)
-    return _loaded[key]
+        _library = (lib, info)
+    return _library
 
 
 def _check_cuda_error(lib, err: int, what: str) -> None:
@@ -308,7 +315,7 @@ def y_indicator_planes(data, L, ty, tn):
 
 
 def _planes_tile(levels: int) -> int:
-    """Side of a K3 / K4 pair tile whose product with ``levels`` indicator
+    """Side of a K4 pair tile whose product with ``levels`` indicator
     levels a side is at most 128 x 128, i.e. one sweep of the tile loop."""
     return min(128, max(16, 128 // levels // 16 * 16))
 
@@ -338,22 +345,24 @@ def pair_ctab_planes_ref(dataT, start, tile, L, y_start=0, y_len=None):
 def pair_ctab_planes(dataT, start, tile, L, y_start=0, y_len=None):
     """All L*L contingency planes of the X-block [start, start+tile) against
     the Y-slab [y_start, y_start+y_len) of a (p, n) int8 table: (L*L, tile,
-    y_len) int32.  CUDA tensors run K3 (L = 2..127); CPU tensors run the
-    plain version."""
+    y_len) int32.  CUDA tensors run K3 (L = 2..127, n < 2^24, the table
+    16-byte aligned); CPU tensors run the plain version."""
     p, n = dataT.shape
     if y_len is None:
         y_len = p
     if dataT.device.type == "cpu":
         return pair_ctab_planes_ref(dataT, start, tile, L, y_start, y_len)
     _check_block("K3", dataT, L, PLANES_LEVELS, start, tile, y_start, y_len)
+    if n >= K3_MAX_SAMPLES or dataT.data_ptr() % 16:
+        raise ValueError(f"K3 needs n < {K3_MAX_SAMPLES} and a 16-byte "
+                         "aligned table")
     planes = torch.empty((L * L, tile, y_len), dtype=torch.int32,
                          device=dataT.device)
-    side = _planes_tile(L)
     lib, _ = load_library()
     with torch.cuda.device(dataT.device):
         stream = torch.cuda.current_stream(dataT.device).cuda_stream
-        err = lib.fw_mi_pair_ctabs(dataT.data_ptr(), n, start, tile, y_start,
-                                   y_len, L, side, side, planes.data_ptr(),
+        err = lib.fw_mi_pair_ctabs(dataT.data_ptr(), n, p, start, tile,
+                                   y_start, y_len, L, planes.data_ptr(),
                                    stream)
     _check_cuda_error(lib, err, "pair_ctab_planes launch")
     pair_ctab_planes.launches += 1

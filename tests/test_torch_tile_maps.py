@@ -1,0 +1,410 @@
+"""The index maps of K2 (``csrc/fz_nz_stats.cu``) and K3
+(``csrc/mi_pair_ctabs.cu`` over ``csrc/int8_indicator_pipe.cuh``), emulated
+in numpy on the CPU.
+
+The CUDA kernels run only on the card.  These tests replay, lane by lane,
+the address arithmetic of each kernel -- the copies of its staging, the
+fragments each lane loads, the mma.sync fragment layouts (as the PTX ISA
+gives them), and the epilogue's stores -- with the kernels' tile constants
+read from their sources, and check that:
+- every staged slot, mask byte and shared epilogue slot that is read was
+  written, and no global read leaves the table;
+- every output element is written exactly once;
+- the emulated results equal the plain versions: K2's N exactly and r
+  within rtol 1e-9 / atol 1e-12 (the emulation sums in another order), NaN
+  positions equal; K3's planes exactly.
+K3 is replayed at every level-group layout the kernel takes (L = 2, 3, 12,
+21, 127), with n not a multiple of 16 (unaligned rows) and ragged tiles;
+K2 with ragged tiles and samples, odd p and offsets, and an unaligned base.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from flashweave_tpu_torch.ops import kernels as K
+
+CSRC = Path(K.SRC_DIR)
+U32 = np.uint32
+
+
+def _constants(*names):
+    """The ``constexpr`` integers of the given csrc files, evaluated in
+    order (later ones may use earlier ones)."""
+    ns = {}
+    for name in names:
+        text = (CSRC / name).read_text()
+        for key, expr in re.findall(r"constexpr (?:int|uint32_t) (\w+)\s*=\s*([^;]+);",
+                                    text):
+            try:
+                ns[key] = int(eval(expr.replace("fw_pipe::", "").strip().rstrip("u"),
+                                   {}, dict(ns)))
+            except (NameError, SyntaxError):
+                pass
+    return ns
+
+
+K2C = _constants("fz_nz_stats.cu")
+K3C = _constants("int8_indicator_pipe.cuh", "mi_pair_ctabs.cu")
+LANE = np.arange(32)
+G_, T_ = LANE >> 2, LANE & 3          # mma groupID, thread in group
+
+
+def test_constants_parsed():
+    assert (K2C["BX"], K2C["BY"], K2C["BK"]) == (64, 64, 32)
+    assert K2C["SX"] % 16 == 4 and K2C["SY"] % 16 == 4    # conflict-free rows
+    assert K2C["SMEM_BYTES"] <= 227 * 1024                 # one block an SM
+    # the conversion: one task (8 samples of a variable) a thread
+    assert (K2C["BX"] + K2C["BY"]) * K2C["BK"] // 8 == K2C["THREADS"]
+    assert (K3C["BX"], K3C["BY"], K3C["G"], K3C["CHUNK"]) == (32, 64, 3, 128)
+    assert K3C["WINDOW"] % 16 == 0 and K3C["WINDOW"] >= K3C["CHUNK"] + 16
+    assert K3C["SMEM_BYTES"] <= 227 * 1024 // 2
+    assert K.K3_MAX_SAMPLES * 128 <= 2 ** 31
+
+
+# ---------------------------------------------------------------------------
+# K2
+# ---------------------------------------------------------------------------
+
+def _dmma(a0, a1, b):
+    """m16n8k4 f64 per warp: a0, a1, b are (warps, 32) lane registers;
+    returns (warps, 4, 32) accumulator increments.  Lane (g, t): a0 =
+    A[g][t], a1 = A[g+8][t], b = B[t][g]; c_e = C[g + 8 (e >> 1)][2t + (e & 1)]."""
+    w = a0.shape[0]
+    A = np.full((w, 16, 4), np.nan)
+    B = np.full((w, 4, 8), np.nan)
+    A[:, G_, T_] = a0
+    A[:, G_ + 8, T_] = a1
+    B[:, T_, G_] = b
+    assert not np.isnan(A).any() and not np.isnan(B).any()   # all filled
+    C = A @ B
+    return np.stack([C[:, G_ + 8 * (e >> 1), 2 * T_ + (e & 1)]
+                     for e in range(4)], axis=1)
+
+
+def emulate_k2(data, start, tile, ys, ylen, base16=True):
+    """K2 replayed block by block; returns (r, N, writes)."""
+    c = K2C
+    n, p = data.shape
+    flat = data.ravel()
+    BX, BY, BK, SX, SY, WX = (c[k] for k in ("BX", "BY", "BK", "SX", "SY", "WX"))
+    THREADS, PLANES = c["THREADS"], c["PLANES"]
+    r_out = np.zeros((tile, ylen))
+    n_out = np.zeros((tile, ylen), np.int64)
+    writes = np.zeros((tile, ylen), np.int64)
+    ntx = -(-tile // BX)
+    warps = np.arange(c["WARPS"])[:, None]
+    wx, wy = warps % WX, warps // WX
+    xr = wx * 16 + G_                    # (warps, 32)
+    for blk in range(ntx * -(-ylen // BY)):
+        bx0, by0 = blk % ntx * BX, blk // ntx * BY
+        xlim, ylim = min(BX, tile - bx0), min(BY, ylen - by0)
+        x0, y0 = start + bx0, ys + by0
+        s = {k: np.zeros((c["WARPS"], 2, 4, 32)) for k in ("x", "xx", "y", "yy", "xy")}
+        cnt = np.zeros((c["WARPS"], 2, 4, 32), np.int64)
+        for kc in range(-(-n // BK)):
+            k0 = kc * BK
+            stage = np.full(2 * PLANES, np.nan)
+            wrote = np.zeros(2 * PLANES, np.int64)
+
+            def copy(dst, gi, ok):
+                assert (gi[ok] >= 0).all() and (gi[ok] < n * p).all()
+                stage[dst] = np.where(ok, flat[np.where(ok, gi, 0)], 0.0)
+                np.add.at(wrote, dst, 1)
+
+            for base, width, stride, col0, lim in ((0, BX, SX, x0, xlim),
+                                                   (BK * SX, BY, SY, y0, ylim)):
+                idx = np.arange(BK * width // 2)
+                assert len(idx) % THREADS == 0        # whole passes
+                r, j = idx // (width // 2), idx % (width // 2) * 2
+                row = k0 + r < n
+                v0, v1 = row & (j < lim), row & (j + 1 < lim)
+                gi = (k0 + r) * p + col0 + j
+                wide = v0 & v1 & base16 & (gi % 2 == 0)
+                dst = base + r * stride + j
+                # a 16-byte copy is two reads of neighbours, both valid
+                copy(dst, gi, v0 | wide)
+                copy(dst + 1, gi + 1, v1 | wide)
+            # convert_stage: squares and masks, a task = 8 samples of one var
+            masks = np.zeros(BX + BY, np.int64)
+            mwrote = np.zeros((BX + BY, BK // 8), np.int64)
+            for task in range((BX + BY) * (BK // 8)):
+                v, kg = task % (BX + BY), task // (BX + BY)
+                isx = v < BX
+                stride = SX if isx else SY
+                pos = (v if isx else BK * SX + v - BX) + (kg * 8 + np.arange(8)) * stride
+                assert (wrote[pos] == 1).all()
+                d = stage[pos]
+                stage[pos + PLANES] = d * d
+                wrote[pos + PLANES] += 1
+                bits = d != 0                        # NaN counts, -0.0 does not
+                masks[v] |= int(np.sum(bits.astype(np.int64) << np.arange(8))) << (8 * kg)
+                mwrote[v, kg] += 1
+            assert (mwrote == 1).all()
+
+            def rd(pos):
+                assert (wrote[pos] == 1).all()
+                return stage[pos]
+
+            yc = wy * 16 + 2 * T_
+            for j in range(2):
+                for e in range(2):
+                    my = masks[BX + yc + 8 * j + e]
+                    for h in range(2):
+                        cnt[:, j, 2 * h + e] += [[bin(int(a) & int(b)).count("1")
+                                                  for a, b in zip(ra, rb)]
+                                                 for ra, rb in zip(masks[xr + 8 * h], my)]
+            ma0, ma1 = masks[xr], masks[xr + 8]
+            mb = [masks[BX + wy * 16 + 8 * j + G_] for j in range(2)]
+            for kk in range(0, BK, 4):
+                k = kk + T_
+                a0, a1 = rd(k * SX + xr), rd(k * SX + xr + 8)
+                q0, q1 = rd(PLANES + k * SX + xr), rd(PLANES + k * SX + xr + 8)
+                m0, m1 = (ma0 >> k) & 1, (ma1 >> k) & 1
+                for j in range(2):
+                    yb = BK * SX + k * SY + wy * 16 + 8 * j + G_
+                    b, bq = rd(yb), rd(PLANES + yb)
+                    bm = (mb[j] >> k) & 1
+                    s["x"][:, j] += _dmma(a0, a1, bm)
+                    s["xx"][:, j] += _dmma(q0, q1, bm)
+                    s["y"][:, j] += _dmma(m0, m1, b)
+                    s["yy"][:, j] += _dmma(m0, m1, bq)
+                    s["xy"][:, j] += _dmma(a0, a1, b)
+        # epilogue
+        for j in range(2):
+            for e in range(4):
+                xi = bx0 + wx * 16 + G_ + 8 * (e >> 1)
+                yj = by0 + wy * 16 + 8 * j + 2 * T_ + (e & 1)
+                ok = (xi < tile) & (yj < ylen)
+                N = cnt[:, j, e]
+                safe = np.where(N > 0, N, 1)
+                Sx, Sy = s["x"][:, j, e], s["y"][:, j, e]
+                with np.errstate(invalid="ignore", divide="ignore"):
+                    cov = s["xy"][:, j, e] - Sx * Sy / safe
+                    vx = s["xx"][:, j, e] - Sx * Sx / safe
+                    vy = s["yy"][:, j, e] - Sy * Sy / safe
+                    r = cov / np.sqrt(vx * vy)
+                r = np.where(r > 1, 1.0, np.where(r < -1, -1.0, r))
+                r = np.where(N == 0, 0.0, r)
+                np.add.at(writes, (xi[ok], yj[ok]), 1)
+                r_out[xi[ok], yj[ok]] = r[ok]
+                n_out[xi[ok], yj[ok]] = N[ok]
+    return r_out, n_out, writes
+
+
+def _fz_table(n, p, seed):
+    rng = np.random.default_rng(seed)
+    data = np.log1p(rng.poisson(2.0, (n, p)) + rng.random((n, p)))
+    data[rng.random((n, p)) < 0.5] = 0.0
+    # multiples of 1/64, so every sum is exact in any order and the
+    # degenerate columns give the same r (or NaN) on both sides
+    data = np.round(data * 64.0) / 64.0
+    data[:, 3] = 0.0                                   # N = 0
+    data[:, 5] = np.where(data[:, 5] != 0, 1.5, 0.0)    # constant -> NaN
+    data[:, 7] = data[:, 6]                             # copy
+    return data
+
+
+@pytest.mark.parametrize("n,p,block,base16", [
+    (70, 41, (3, 37, 1, 39), True),        # ragged n, tiles; odd p and offsets
+    (64, 100, (0, 64, 0, 32), True),        # one whole block
+    (45, 131, (1, 70, 30, 65), False),      # unaligned base: 8-byte copies
+    (33, 97, (60, 37, 2, 95), True),        # the table's last column staged
+])
+def test_k2_maps(n, p, block, base16):
+    data = _fz_table(n, p, n + p)
+    start, tile, ys, ylen = block
+    r, N, writes = emulate_k2(data, start, tile, ys, ylen, base16)
+    assert (writes == 1).all()
+    wr, wN = K.fz_nz_stats_ref(torch.from_numpy(data), start, tile, ys, ylen)
+    wr, wN = wr.numpy(), wN.numpy()
+    np.testing.assert_array_equal(N, wN)
+    nan = np.isnan(wr)
+    np.testing.assert_array_equal(np.isnan(r), nan)
+    np.testing.assert_allclose(r[~nan], wr[~nan], rtol=1e-9, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# K3
+# ---------------------------------------------------------------------------
+
+def _match80(v7, code):
+    return ~((v7 ^ code) + U32(0x7F7F7F7F)) & U32(0x80808080)
+
+
+def _bytes(words):
+    """(..., 4) uint8 of contiguous uint32 words (little-endian)."""
+    return np.ascontiguousarray(words)[..., None].view(np.uint8)
+
+
+def _mma_u8(a, b0, b1):
+    """m16n8k32 u8 per warp, for na x nb level pairs at once: a (na, 4,
+    warps, 32) and b0, b1 (nb, warps, 32) lane registers; returns (na, nb,
+    warps, 4, 32) int64 accumulator increments.  Lane (g, t): a0 =
+    A[g][4t..], a1 = A[g+8][4t..], a2 = A[g][16+4t..], a3 = A[g+8][16+4t..];
+    b0 = B[4t..][g], b1 = B[16+4t..][g]."""
+    na, nb, w = a.shape[0], b0.shape[0], b0.shape[1]
+    A = np.full((na, w, 16, 32), -1, np.int64)
+    B = np.full((nb, w, 32, 8), -1, np.int64)
+    kq = 4 * T_[:, None] + np.arange(4)[None, :]     # (32, 4)
+    for i, (rows, koff) in enumerate(((G_, 0), (G_ + 8, 0), (G_, 16), (G_ + 8, 16))):
+        A[:, :, rows[:, None], kq + koff] = _bytes(a[:, i])
+    B[:, :, kq, G_[:, None]] = _bytes(b0)
+    B[:, :, kq + 16, G_[:, None]] = _bytes(b1)
+    assert (A >= 0).all() and (B >= 0).all()
+    C = np.einsum("awik,bwkj->abwij", A, B)
+    return np.stack([C[:, :, :, G_ + 8 * (e >> 1), 2 * T_ + (e & 1)]
+                     for e in range(4)], axis=3)
+
+
+def emulate_k3(dataT, start, tile, L, ys, ylen):
+    """K3 replayed block by block; returns (planes, writes)."""
+    c = K3C
+    p, n = dataT.shape
+    raw = dataT.astype(np.int8).view(np.uint8).ravel()
+    total = p * n
+    BX, BY, G, CHUNK, WINDOW = (c[k] for k in ("BX", "BY", "G", "CHUNK", "WINDOW"))
+    WXN, ES, PAD = c["WXN"], c["ESTRIDE"], U32(0x7F7F7F7F)
+    planes = np.full((L * L, tile, ylen), -1, np.int64)
+    writes = np.zeros((L * L, tile, ylen), np.int64)
+    ntx = -(-tile // BX)
+    warps = np.arange(c["WARPS"])[:, None]
+    chunks = -(-n // CHUNK)
+    for blk in range(ntx * -(-ylen // BY)):
+        xt, yt = blk % ntx * BX, blk // ntx * BY
+        nx, ny = min(BX, tile - xt), min(BY, ylen - yt)
+        rows = np.array([start + xt + min(r, nx - 1) if r < BX
+                         else ys + yt + min(r - BX, ny - 1)
+                         for r in range(BX + BY)])
+        # the staged chunks (load_stage): aligned windows, zero fill at the end
+        stages = []
+        for kc in range(chunks):
+            st = np.zeros((BX + BY) * WINDOW, np.uint8)
+            for r, row in enumerate(rows):
+                for w in range(WINDOW // 16):
+                    a = ((row * n + kc * CHUNK) & ~15) + 16 * w
+                    nb = 0 if a >= total else min(16, total - a)
+                    assert nb == 0 or a + nb <= total     # no byte read past the end
+                    st[r * WINDOW + 16 * w:r * WINDOW + 16 * w + nb] = raw[a:a + nb]
+            stages.append(st.view(U32))
+        off = (rows * n) & 15
+        rword = np.arange(BX + BY) * (WINDOW // 4) + (off >> 2)
+        rshift = 8 * (off & 3)
+
+        def load_word(st, r, pos, rem):
+            wi = rword[r] + (pos >> 2)
+            assert (wi + 1 < len(st)).all()
+            both = (st[wi + 1].astype(np.uint64) << np.uint64(32)) | st[wi]
+            wv = (both >> rshift[r].astype(np.uint64)).astype(U32) & PAD
+            keep = np.clip(rem - pos, 0, 4)
+            m = np.where(keep >= 4, U32(0xFFFFFFFF),
+                         ((np.uint64(1) << (8 * keep).astype(np.uint64)) - np.uint64(1)).astype(U32))
+            return (wv & m) | (PAD & ~m)
+
+        xr = 16 * (warps % WXN) + G_
+        yr = BX + 16 * (warps // WXN) + G_
+        words = []                      # per chunk and k-step: A (4) and B (2 x 2)
+        for kc in range(chunks):
+            rem = n - kc * CHUNK
+            for kk in range(0, CHUNK, 32):
+                p0 = kk + 4 * T_
+                p1 = p0 + 16
+                a = np.stack([load_word(stages[kc], xr, p0, rem),
+                              load_word(stages[kc], xr + 8, p0, rem),
+                              load_word(stages[kc], xr, p1, rem),
+                              load_word(stages[kc], xr + 8, p1, rem)])
+                bw = [(load_word(stages[kc], yr + 8 * j, p0, rem),
+                       load_word(stages[kc], yr + 8 * j, p1, rem)) for j in range(2)]
+                words.append((a, bw))
+        for a0 in range(0, L, G):
+            na = min(G, L - a0)
+            for b0 in range(0, L, G):
+                nb = min(G, L - b0)
+                acodes = U32(0x01010101) * (a0 + np.arange(na, dtype=U32))
+                bcodes = U32(0x01010101) * (b0 + np.arange(nb, dtype=U32))
+                acc = np.zeros((na, nb, 2, c["WARPS"], 4, 32), np.int64)
+                for a, bw in words:
+                    ai = _match80(a[None], acodes[:, None, None, None])
+                    for j, (v0, v1) in enumerate(bw):
+                        bi0 = _match80(v0[None], bcodes[:, None, None]) >> 7
+                        bi1 = _match80(v1[None], bcodes[:, None, None]) >> 7
+                        acc[:, :, j] += _mma_u8(ai, bi0, bi1)
+                # epilogue: a warp buffer, then four neighbouring counts a store
+                buf = np.full((na, nb, c["WARPS"], 16 * ES), -1, np.int64)
+                for j in range(2):
+                    for e in range(4):
+                        slot = (G_ + 8 * (e >> 1)) * ES + 8 * j + 2 * T_ + (e & 1)
+                        buf[:, :, warps, slot] = acc[:, :, j, :, e] >> 7
+                plane = ((a0 + np.arange(na))[:, None] * L
+                         + b0 + np.arange(nb)[None, :])[:, :, None, None]
+                for h in range(2):
+                    r = (LANE >> 2) + 8 * h
+                    col = 4 * (LANE & 3)
+                    x = xt + 16 * (warps % WXN) + r
+                    y = yt + 16 * (warps // WXN) + col
+                    for q in range(4):
+                        v = buf[:, :, warps, r * ES + col + q]
+                        shape = v.shape
+                        ok = np.broadcast_to((x < tile) & (y + q < ylen), shape)
+                        pl = np.broadcast_to(plane, shape)[ok]
+                        xs = np.broadcast_to(x, shape)[ok]
+                        yq = np.broadcast_to(y + q, shape)[ok]
+                        assert (v[ok] >= 0).all()
+                        np.add.at(writes, (pl, xs, yq), 1)
+                        planes[pl, xs, yq] = v[ok]
+    return planes, writes
+
+
+@pytest.mark.parametrize("L,n,p,block", [
+    (2, 300, 120, (5, 40, 50, 70)),     # 3 chunks, n % 16 = 12, table's end
+    (3, 129, 200, (0, 64, 0, 64)),      # 16-byte stores (y_len % 4 == 0)
+    (12, 100, 60, (7, 20, 3, 36)),      # 16 level sweeps
+    (21, 50, 70, (2, 33, 45, 17)),      # 49 sweeps, two X tiles
+    (127, 40, 20, (3, 16, 1, 19)),      # 43 x 43 sweeps
+])
+def test_k3_maps(L, n, p, block):
+    rng = np.random.default_rng(L)
+    dataT = rng.integers(0, L, (p, n)).astype(np.int8)
+    dataT[1] = 0
+    start, tile, ys, ylen = block
+    planes, writes = emulate_k3(dataT, start, tile, L, ys, ylen)
+    assert (writes == 1).all()
+    want = K.pair_ctab_planes_ref(torch.from_numpy(dataT), start, tile, L, ys,
+                                  ylen).numpy()
+    np.testing.assert_array_equal(planes, want)
+
+
+def test_k3_indicator_matches_only_its_level():
+    """The three-instruction byte test: 0x80 exactly where a sample equals
+    the level, for every value the table and the pad can hold."""
+    vals = np.arange(128, dtype=np.uint8)               # 0..126 and the pad
+    words = np.frombuffer(np.repeat(vals, 4).tobytes(), U32)
+    for level in range(127):
+        got = _match80(words, U32(0x01010101 * level))
+        want = np.where(vals == level, U32(0x80808080), U32(0))
+        np.testing.assert_array_equal(got, want)
+
+
+def test_load_library_builds_once_per_process(monkeypatch, tmp_path):
+    """Later launches reuse the loaded library without hashing the sources."""
+    calls = []
+
+    class FakeLib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    def fake_build():
+        calls.append(1)
+        return K.BuildInfo(tmp_path / "lib.so", 0.0, "")
+
+    monkeypatch.setattr(K, "_library", None)
+    monkeypatch.setattr(K, "build_library", fake_build)
+    monkeypatch.setattr(K.ctypes, "CDLL", lambda path: FakeLib())
+    first = K.load_library()
+    assert K.load_library() is first
+    assert len(calls) == 1

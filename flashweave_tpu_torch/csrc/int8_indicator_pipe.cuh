@@ -1,6 +1,6 @@
-// Pipelined tile loop of level-indicator products on the int8 tensor cores.
-// K3 (mi_pair_ctabs.cu) uses it.  K4 (mi_univar_stats_planes.cu) still runs
-// the older, unpipelined loop of int8_indicator_mma.cuh.
+// Pipelined tile loop of level-indicator products on the int8 tensor cores,
+// shared by K3 (mi_pair_ctabs.cu, levels 0..L-1) and K4
+// (mi_univar_stats_planes.cu, levels 1..L-1).
 //
 // One block owns a pair tile of BX X variables against BY Y variables (rows
 // of the (p, n) int8 table dataT).  Read as matrix products, the 0/1
@@ -11,8 +11,9 @@
 // Work split: every warp owns a 16 x 16 pair sub-tile (warps 2 x 4, so the
 // block tile is 32 x 64) and every level product of its pairs, so all eight
 // warps do the same work at every L.  The level pairs are taken G x G at a
-// time (G = 3: 72 int32 accumulators a lane); L <= 3 takes one sweep over
-// the samples, larger L ceil(L / 3)^2 sweeps.
+// time (G = 3: 72 int32 accumulators a lane); the levels FIRST..L-1 take
+// ceil((L - FIRST) / 3)^2 sweeps over the samples, which a caller may split
+// between blocks by X level groups.
 //
 // Staging: 128-sample chunks of the tile's 96 rows go through a 3-stage
 // cp.async ring (16-byte copies), so two chunks are in flight while one
@@ -142,16 +143,19 @@ __device__ __forceinline__ uint32_t load_word(const uint32_t* stage, RowRef rr,
   return w;
 }
 
-// All level products of one block tile.  Called by every thread of the
-// block; epi(a0, na, b0, nb, acc) is called by every warp after each sweep
-// with the counts of levels [a0, a0 + na) x [b0, b0 + nb) of its 16 x 16
-// pair sub-tile: acc[a][b][j][e] is the count of X row
+// All products of X levels [a_lo, a_hi) and Y levels FIRST..L-1 of one
+// block tile (a_lo - FIRST a multiple of G; a_lo = FIRST, a_hi = L for all
+// of them).  Called by every thread of the block; epi(a0, na, b0, nb, acc)
+// is called by every warp after each sweep with the counts of levels
+// [a0, a0 + na) x [b0, b0 + nb) of its 16 x 16 pair sub-tile:
+// acc[a][b][j][e] >> 7 is the count of X row
 // 16 * (warp % WXN) + g + 8 * (e >> 1) and Y row
 // 16 * (warp / WXN) + 8 * j + 2 * q + (e & 1) of the block tile
 // (g = lane / 4, q = lane % 4), at levels a0 + a and b0 + b.
-template <class Epi>
-__device__ __forceinline__ void level_products(const Tile& t, int L,
-                                               uint8_t* ring, Epi& epi) {
+template <int FIRST, class Epi>
+__device__ __forceinline__ void level_products(const Tile& t, int L, int a_lo,
+                                               int a_hi, uint8_t* ring,
+                                               Epi& epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3;
   const int xr = 16 * (warp % WXN) + g, yr = BX + 16 * (warp / WXN) + g;
@@ -159,9 +163,9 @@ __device__ __forceinline__ void level_products(const Tile& t, int L,
   const RowRef rb0 = row_ref(t, yr), rb1 = row_ref(t, yr + 8);
   const int chunks = (t.n + CHUNK - 1) / CHUNK;
 
-  for (int a0 = 0; a0 < L; a0 += G) {
-    const int na = min(G, L - a0);
-    for (int b0 = 0; b0 < L; b0 += G) {
+  for (int a0 = a_lo; a0 < a_hi; a0 += G) {
+    const int na = min(G, a_hi - a0);
+    for (int b0 = FIRST; b0 < L; b0 += G) {
       const int nb = min(G, L - b0);
       int acc[G][G][2][4];
 #pragma unroll

@@ -91,7 +91,7 @@ mi_pair_ctabs_kernel(const int8_t* __restrict__ dataT, int n, int p,
         __syncwarp();
       }
   };
-  level_products(t, L, smem, epi);
+  level_products<0>(t, L, 0, L, smem, epi);
 }
 
 }  // namespace

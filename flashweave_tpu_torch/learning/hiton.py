@@ -2,8 +2,9 @@
 
 The JAX file imports jax through ``..ops.statfuns``.  In this copy the
 relative imports resolve inside ``flashweave_tpu_torch``, which imports
-no jax.  Nothing else differs; ``tests/test_torch_learning.py`` checks
-that.
+no jax.  Beyond that only ``si_hiton_pc`` differs: it takes ``device`` and
+passes it to its univariate pass and its engine.
+``tests/test_torch_learning.py`` checks that nothing else does.
 
 Semi-interleaved HITON-PC per-variable neighborhood search.
 
@@ -1375,7 +1376,8 @@ def si_hiton_pc_gen(T: int, cfg: HitonConfig, engine,
     return _make_final_state(prev_state, PC_dict, TPC_dict, rej_dict)
 
 
-def si_hiton_pc(T: int, data, test_name: str = "mi", **kwargs) -> HitonState:
+def si_hiton_pc(T: int, data, test_name: str = "mi", device="cuda",
+                **kwargs) -> HitonState:
     """Convenience wrapper: learn the local neighborhood of one variable
     (reference: src/hiton.jl:403-409).  Runs the univariate pass, then drives
     the search generator to completion with a local engine."""
@@ -1399,11 +1401,11 @@ def si_hiton_pc(T: int, data, test_name: str = "mi", **kwargs) -> HitonState:
     univar = pw_univar_neighbors(
         data, test_name=test_name, alpha=cfg.alpha, hps=cfg.hps,
         n_obs_min=cfg.n_obs_min, levels=levels, max_vals=max_vals,
-        cor_mat=cor_mat,
+        cor_mat=cor_mat, device=device,
     )
     engine = CondTestEngine(data, test_name, cfg.max_k, levels=levels,
                             max_vals=max_vals, cor_mat=cor_mat, hps=cfg.hps,
-                            n_obs_min=cfg.n_obs_min)
+                            n_obs_min=cfg.n_obs_min, device=device)
     from .scheduler import Dispatcher
 
     dispatcher = Dispatcher(engine, cfg.alpha, fast=fast_mode(cfg))

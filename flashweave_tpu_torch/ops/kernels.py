@@ -17,9 +17,8 @@
   ``pallas_kernels.py:mi_univar_stats_planes``.
   :func:`mi_univar_stats_planes` is its wrapper (K1's signature, L = 2..127),
   :func:`mi_univar_stats_planes_ref` its plain version (indicator planes, one
-  product, the level-0 cells rebuilt from the margins).  K4 runs the tile
-  loop ``csrc/int8_indicator_mma.cuh``, K3 the pipelined one
-  ``csrc/int8_indicator_pipe.cuh``.
+  product, the level-0 cells rebuilt from the margins).  K3 and K4 both run
+  the pipelined int8 tile loop ``csrc/int8_indicator_pipe.cuh``.
 - On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
   tensor it runs the plain version.  Each counts its launches in
   ``<wrapper>.launches``; :func:`launch_counts` reports them all.
@@ -52,14 +51,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # L supported by K1 (its template instantiations)
 K1_LEVELS = range(2, 9)
-# L supported by K3 and K4: int8 levels 0..126, leaving pad values free
-# (-1 for K4, 127 for K3)
+# L supported by K3 and K4: int8 levels 0..126, leaving the pad value 127
+# free
 PLANES_LEVELS = range(2, 128)
-# K3 sums 128 per joint match in int32 (int8_indicator_pipe.cuh)
-K3_MAX_SAMPLES = 1 << 24
-# K4 keeps one pair tile's (L-1)^2 counts in shared memory up to this size
-K4_SMEM_STORE_BYTES = 200 * 1024
-# ... and past it in a scratch buffer of at most this size
+# K3 and K4 sum 128 per joint match in int32 (int8_indicator_pipe.cuh)
+PIPE_MAX_SAMPLES = 1 << 24
+# K4's block tile, X x Y pairs (int8_indicator_pipe.cuh's BX x BY)
+K4_TILE = (32, 64)
+# K4's slab of int32 joint counts in device memory holds at most this much
 K4_SCRATCH_BYTES = 1 << 30
 
 
@@ -146,8 +145,8 @@ def load_library():
             ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr]
         lib.fw_fz_nz_stats.restype = i32
         lib.fw_mi_univar_stats_planes.argtypes = [
-            ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, i32, i32, f64,
-            f64, ptr, ptr, ptr, ptr, i32, i32, ptr, i32, ptr]
+            ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, i32, i32,
+            f64, f64, ptr, ptr, ptr, ptr, ptr, ptr]
         lib.fw_mi_univar_stats_planes.restype = i32
         lib.fw_mi_pair_ctabs.argtypes = [
             ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr]
@@ -314,23 +313,30 @@ def y_indicator_planes(data, L, ty, tn):
     return planes.to(torch.int8).reshape(n_pad, (p_pad // ty) * K * ty)
 
 
-def _planes_tile(levels: int) -> int:
-    """Side of a K4 pair tile whose product with ``levels`` indicator
-    levels a side is at most 128 x 128, i.e. one sweep of the tile loop."""
-    return min(128, max(16, 128 // levels // 16 * 16))
+def _check_pipe_table(who, dataT):
+    """What the int8 pipe (K3, K4) needs of the table beyond _check_block."""
+    if dataT.shape[1] >= PIPE_MAX_SAMPLES or dataT.data_ptr() % 16:
+        raise ValueError(f"{who} needs n < {PIPE_MAX_SAMPLES} and a 16-byte "
+                         "aligned table")
 
 
-def k4_tile(L: int):
-    """(bx, by, in_scratch): K4's pair tile at L levels.  The tile's
-    (L-1)^2 * bx * by int32 counts stay in shared memory while they fit in
-    ``K4_SMEM_STORE_BYTES`` (16 x 8 tiles up to L = 21); past that they go
-    to a scratch buffer (``in_scratch``)."""
-    K = L - 1
-    side = _planes_tile(K)
-    for bx, by in ((side, side), (16, 8)):
-        if 4 * K * K * bx * by <= K4_SMEM_STORE_BYTES:
-            return bx, by, False
-    return 16, 8, True
+def k4_sub_blocks(L: int, tile: int, y_len: int):
+    """K4's walk over a (tile, y_len) block: (x_off, x_len, y_off, y_len)
+    sub-blocks of whole block tiles, covering the block once, each with a
+    slab ((L-1)^2 int32 counts of every pair of its block tiles) of at most
+    ``K4_SCRATCH_BYTES``.  Whole X-blocks are cut along Y, the parts as
+    equal as the tiles allow."""
+    bx, by = K4_TILE
+    per_tile = (L - 1) ** 2 * bx * by * 4
+    budget = max(1, K4_SCRATCH_BYTES // per_tile)      # block tiles a slab
+    ntx, nty = -(-tile // bx), -(-y_len // by)
+    sx = min(ntx, budget)
+    sy = max(1, min(nty, budget // sx))
+    parts_x, parts_y = -(-ntx // sx), -(-nty // sy)
+    sx, sy = -(-ntx // parts_x), -(-nty // parts_y)
+    return [(i * sx * bx, min(sx * bx, tile - i * sx * bx),
+             j * sy * by, min(sy * by, y_len - j * sy * by))
+            for i in range(parts_x) for j in range(parts_y)]
 
 
 def pair_ctab_planes_ref(dataT, start, tile, L, y_start=0, y_len=None):
@@ -353,9 +359,7 @@ def pair_ctab_planes(dataT, start, tile, L, y_start=0, y_len=None):
     if dataT.device.type == "cpu":
         return pair_ctab_planes_ref(dataT, start, tile, L, y_start, y_len)
     _check_block("K3", dataT, L, PLANES_LEVELS, start, tile, y_start, y_len)
-    if n >= K3_MAX_SAMPLES or dataT.data_ptr() % 16:
-        raise ValueError(f"K3 needs n < {K3_MAX_SAMPLES} and a 16-byte "
-                         "aligned table")
+    _check_pipe_table("K3", dataT)
     planes = torch.empty((L * L, tile, y_len), dtype=torch.int32,
                          device=dataT.device)
     lib, _ = load_library()
@@ -412,7 +416,9 @@ def mi_univar_stats_planes(dataT, marg, levels, max_vals, start, tile, L,
                            n_obs_min=0.0):
     """K1's function (:func:`mi_univar_stats`, same arguments and results)
     with the joint counts on the int8 tensor cores, for L = 2..127.  CUDA
-    tensors run K4; CPU tensors run the plain version."""
+    tensors run K4 (n < 2^24, the table 16-byte aligned) over the
+    sub-blocks of :func:`k4_sub_blocks`; CPU tensors run the plain
+    version."""
     p, n = dataT.shape
     if y_len is None:
         y_len = p
@@ -421,29 +427,30 @@ def mi_univar_stats_planes(dataT, marg, levels, max_vals, start, tile, L,
                                           tile, L, y_start, y_len, nz, hps,
                                           n_obs_min)
     _check_block("K4", dataT, L, PLANES_LEVELS, start, tile, y_start, y_len)
+    _check_pipe_table("K4", dataT)
     _check_stats_args(dataT, marg, levels, max_vals, L, nz)
     dev = dataT.device
-    stat, df, nobs, suff = _stats_outputs(tile, y_len, dev)
-    bx, by, in_scratch = k4_tile(L)
-    blocks = -(-tile // bx) * -(-y_len // by)
-    scratch = None
-    if in_scratch:
-        per_block = (L - 1) ** 2 * bx * by
-        blocks = max(1, min(blocks, K4_SCRATCH_BYTES // (4 * per_block)))
-        scratch = torch.empty(blocks * per_block, dtype=torch.int32,
-                              device=dev)
+    outs = _stats_outputs(tile, y_len, dev)
+    bx, by = K4_TILE
+    subs = k4_sub_blocks(L, tile, y_len)
+    tiles = max(-(-xl // bx) * -(-yl // by) for _, xl, _, yl in subs)
+    slab = torch.empty(tiles * bx * by * (L - 1) ** 2, dtype=torch.int32,
+                       device=dev)
     lib, _ = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fw_mi_univar_stats_planes(
-            dataT.data_ptr(), n, p, start, tile, y_start, y_len,
-            marg.data_ptr(), levels.data_ptr(), max_vals.data_ptr(), L,
-            int(nz), float(hps), float(n_obs_min), stat.data_ptr(),
-            df.data_ptr(), nobs.data_ptr(), suff.data_ptr(), bx, by,
-            None if scratch is None else scratch.data_ptr(), blocks, stream)
-    _check_cuda_error(lib, err, "mi_univar_stats_planes launch")
+        for xo, xl, yo, yl in subs:
+            # the sub-block's corner in each (tile, y_len) output
+            corners = [t.data_ptr() + (xo * y_len + yo) * t.element_size()
+                       for t in outs]
+            err = lib.fw_mi_univar_stats_planes(
+                dataT.data_ptr(), n, p, start + xo, xl, y_start + yo, yl,
+                y_len, marg.data_ptr(), levels.data_ptr(), max_vals.data_ptr(),
+                L, int(nz), float(hps), float(n_obs_min), *corners,
+                slab.data_ptr(), stream)
+            _check_cuda_error(lib, err, "mi_univar_stats_planes launch")
     mi_univar_stats_planes.launches += 1
-    return stat, df, nobs, suff
+    return outs
 
 
 mi_univar_stats_planes.launches = 0

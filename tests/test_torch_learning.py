@@ -119,7 +119,7 @@ def test_continuous_modes_not_ported(table):
         fwt.learn_network(table, sensitive=True, verbose=False, device="cpu")
 
 
-# lines each copy may differ in: its header docstring, and the scheduler's
+# lines each copy may differ in: its header docstring and the scheduler's
 # multi-process probe
 _ALLOWED = {
     "hiton.py": set(),
@@ -137,6 +137,47 @@ _ALLOWED = {
 }
 
 
+# si_hiton_pc's device, (edited text, JAX text): each edit appears once in
+# hiton.py, inside si_hiton_pc, and is undone before the copies are compared
+_DEVICE_EDITS = [
+    ('test_name: str = "mi", device="cuda",\n                **kwargs)',
+     'test_name: str = "mi", **kwargs)'),
+    ("cor_mat=cor_mat, device=device,", "cor_mat=cor_mat,"),
+    ("n_obs_min=cfg.n_obs_min, device=device)", "n_obs_min=cfg.n_obs_min)"),
+]
+
+
+def _undo_device_edits(src):
+    head, fn = src.split("\ndef si_hiton_pc(", 1)
+    fn, sep, tail = fn.partition("\ndef ")
+    for edited, jax_text in _DEVICE_EDITS:
+        assert src.count(edited) == 1 and fn.count(edited) == 1, edited
+        fn = fn.replace(edited, jax_text)
+    return head + "\ndef si_hiton_pc(" + fn + sep + tail
+
+
+@pytest.mark.parametrize("test_name", ["mi_nz", "fz_nz"])
+@pytest.mark.parametrize("T", [0, 13])
+def test_si_hiton_pc_on_cpu_equals_jax(table, test_name, T):
+    """The one-variable search on the CPU: the same PC set as the JAX
+    package's ``si_hiton_pc``, stats and p-values within this file's
+    tolerances (mi_nz rtol 1e-9; fz_nz atol 2e-5, the pcor DP's grid)."""
+    from flashweave_tpu.learning.hiton import si_hiton_pc as jax_si_hiton_pc
+    from flashweave_tpu_torch.learning.hiton import si_hiton_pc
+
+    data = table if test_name == "mi_nz" else np.log1p(table)
+    want = jax_si_hiton_pc(T, data, test_name=test_name, max_k=3)
+    got = si_hiton_pc(T, data, test_name=test_name, max_k=3, device="cpu")
+    assert got.phase == want.phase == "F"
+    assert list(got.state_results) == list(want.state_results)
+    assert len(got.state_results) > 0
+    tol = (dict(rtol=1e-9, atol=0) if test_name == "mi_nz"
+           else dict(rtol=0, atol=2e-5))
+    np.testing.assert_allclose(np.array(list(got.state_results.values())),
+                               np.array(list(want.state_results.values())),
+                               **tol)
+
+
 @pytest.mark.parametrize("name", sorted(_ALLOWED))
 def test_search_layer_copies_match_jax(name):
     jax_src = (ROOT / "flashweave_tpu" / "learning" / name).read_text()
@@ -145,6 +186,8 @@ def test_search_layer_copies_match_jax(name):
     # the port's header paragraphs precede the JAX docstring's first line
     jax_body = jax_src[len('"""'):]
     body = port_src[port_src.index(jax_body.splitlines()[0]):]
+    if name == "hiton.py":
+        body = _undo_device_edits(body)
     diff = [
         line[1:].strip() for line in difflib.ndiff(
             jax_body.splitlines(), body.splitlines())

@@ -193,13 +193,28 @@ def test_block_fn_chosen_from_levels():
 
 
 def test_k4_tile_fits_its_store():
+    """K4's slab walk cuts the block into sub-blocks of whole block tiles
+    that cover it once, each slab of int32 counts within K4_SCRATCH_BYTES
+    (phase 6's block: three parts of the Y-slab; at L = 127, eight block
+    tiles a slab, so the X-block is cut too)."""
+    bx, by = K.K4_TILE
+    tile, y_len = 512, 10_000
     for L in K.PLANES_LEVELS:
-        bx, by, in_scratch = K.k4_tile(L)
-        assert bx % 16 == 0 and by % 8 == 0 and bx <= 128 and by <= 128
-        store = 4 * (L - 1) ** 2 * bx * by
-        assert in_scratch == (store > K.K4_SMEM_STORE_BYTES)
-        assert in_scratch == (L > 21)
-    assert K.k4_tile(3) == (64, 64, False)
+        per_tile = (L - 1) ** 2 * bx * by * 4
+        subs = K.k4_sub_blocks(L, tile, y_len)
+        xs = sorted({(x0, xl) for x0, xl, _, _ in subs})
+        ys = sorted({(y0, yl) for _, _, y0, yl in subs})
+        assert len(subs) == len(xs) * len(ys)
+        for spans, total, side in ((xs, tile, bx), (ys, y_len, by)):
+            assert spans[0][0] == 0 and sum(ln for _, ln in spans) == total
+            assert all(a0 + al == b0 for (a0, al), (b0, _) in zip(spans, spans[1:]))
+            assert all(s0 % side == 0 for s0, _ in spans)
+        slab = max(-(-xl // bx) * -(-yl // by) for _, xl, _, yl in subs) * per_tile
+        assert slab <= K.K4_SCRATCH_BYTES
+        assert (len(subs) == 1) == (L <= 8)
+    assert K.k4_sub_blocks(12, tile, y_len) == [
+        (0, 512, 0, 3392), (0, 512, 3392, 3392), (0, 512, 6784, 3216)]
+    assert {x0 for x0, _, _, _ in K.k4_sub_blocks(127, tile, y_len)} == {0, 256}
 
 
 def test_cpu_wrappers_run_plain_versions_without_counting():

@@ -1,6 +1,7 @@
-"""The index maps of K2 (``csrc/fz_nz_stats.cu``) and K3
-(``csrc/mi_pair_ctabs.cu`` over ``csrc/int8_indicator_pipe.cuh``), emulated
-in numpy on the CPU.
+"""The index maps of K2 (``csrc/fz_nz_stats.cu``), K3
+(``csrc/mi_pair_ctabs.cu``) and K4 (``csrc/mi_univar_stats_planes.cu``),
+the last two over ``csrc/int8_indicator_pipe.cuh``, emulated in numpy on
+the CPU.
 
 The CUDA kernels run only on the card.  These tests replay, lane by lane,
 the address arithmetic of each kernel -- the copies of its staging, the
@@ -12,10 +13,13 @@ read from their sources, and check that:
 - every output element is written exactly once;
 - the emulated results equal the plain versions: K2's N exactly and r
   within rtol 1e-9 / atol 1e-12 (the emulation sums in another order), NaN
-  positions equal; K3's planes exactly.
+  positions equal; K3's planes and K4's results exactly.
 K3 is replayed at every level-group layout the kernel takes (L = 2, 3, 12,
 21, 127), with n not a multiple of 16 (unaligned rows) and ragged tiles;
-K2 with ragged tiles and samples, odd p and offsets, and an unaligned base.
+K4 from level 1 at L = 2, 3, 9, 12, 21, 22, 48 and 127, by X level groups,
+through its slab of counts walked in one or several sub-blocks, with
+ragged tiles and n = 2,047; K2 with ragged tiles and samples, odd p and
+offsets, and an unaligned base.
 """
 
 import re
@@ -26,6 +30,7 @@ import pytest
 import torch
 
 from flashweave_tpu_torch.ops import kernels as K
+from flashweave_tpu_torch.state import from_numpy_state
 
 CSRC = Path(K.SRC_DIR)
 U32 = np.uint32
@@ -49,6 +54,7 @@ def _constants(*names):
 
 K2C = _constants("fz_nz_stats.cu")
 K3C = _constants("int8_indicator_pipe.cuh", "mi_pair_ctabs.cu")
+K4C = _constants("int8_indicator_pipe.cuh", "mi_univar_stats_planes.cu")
 LANE = np.arange(32)
 G_, T_ = LANE >> 2, LANE & 3          # mma groupID, thread in group
 
@@ -62,7 +68,12 @@ def test_constants_parsed():
     assert (K3C["BX"], K3C["BY"], K3C["G"], K3C["CHUNK"]) == (32, 64, 3, 128)
     assert K3C["WINDOW"] % 16 == 0 and K3C["WINDOW"] >= K3C["CHUNK"] + 16
     assert K3C["SMEM_BYTES"] <= 227 * 1024 // 2
-    assert K.K3_MAX_SAMPLES * 128 <= 2 ** 31
+    assert K.PIPE_MAX_SAMPLES * 128 <= 2 ** 31
+    # K4: its block tile is the pipe's, and its epilogue kernel's blocks
+    # cover a block tile's pairs exactly
+    assert (K4C["BX"], K4C["BY"]) == K.K4_TILE
+    assert K4C["PAIRS"] == K4C["BX"] * K4C["BY"] == 8 * K4C["SUB_PAIRS"]
+    assert K4C["PAIRS"] % K4C["EPI_THREADS"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -260,16 +271,20 @@ def _mma_u8(a, b0, b1):
                      for e in range(4)], axis=3)
 
 
-def emulate_k3(dataT, start, tile, L, ys, ylen):
-    """K3 replayed block by block; returns (planes, writes)."""
+def replay_level_products(dataT, start, tile, L, ys, ylen, first):
+    """``level_products<first>`` of int8_indicator_pipe.cuh replayed block
+    tile by block tile (block tiles in launch order, X tiles fastest).
+    Yields (blk, xt, yt, sweeps): the block tile's origin inside the block
+    and ``sweeps(a_lo, a_hi)``, the sweeps of X levels [a_lo, a_hi) against
+    Y levels first..L-1, each (a0, na, b0, nb, acc) with acc (na, nb, 2,
+    WARPS, 4, 32) the int64 accumulators of levels a0 + a, b0 + b (128 a
+    match)."""
     c = K3C
     p, n = dataT.shape
     raw = dataT.astype(np.int8).view(np.uint8).ravel()
     total = p * n
     BX, BY, G, CHUNK, WINDOW = (c[k] for k in ("BX", "BY", "G", "CHUNK", "WINDOW"))
-    WXN, ES, PAD = c["WXN"], c["ESTRIDE"], U32(0x7F7F7F7F)
-    planes = np.full((L * L, tile, ylen), -1, np.int64)
-    writes = np.zeros((L * L, tile, ylen), np.int64)
+    WXN, PAD = c["WXN"], U32(0x7F7F7F7F)
     ntx = -(-tile // BX)
     warps = np.arange(c["WARPS"])[:, None]
     chunks = -(-n // CHUNK)
@@ -319,42 +334,59 @@ def emulate_k3(dataT, start, tile, L, ys, ylen):
                 bw = [(load_word(stages[kc], yr + 8 * j, p0, rem),
                        load_word(stages[kc], yr + 8 * j, p1, rem)) for j in range(2)]
                 words.append((a, bw))
-        for a0 in range(0, L, G):
-            na = min(G, L - a0)
-            for b0 in range(0, L, G):
-                nb = min(G, L - b0)
-                acodes = U32(0x01010101) * (a0 + np.arange(na, dtype=U32))
-                bcodes = U32(0x01010101) * (b0 + np.arange(nb, dtype=U32))
-                acc = np.zeros((na, nb, 2, c["WARPS"], 4, 32), np.int64)
-                for a, bw in words:
-                    ai = _match80(a[None], acodes[:, None, None, None])
-                    for j, (v0, v1) in enumerate(bw):
-                        bi0 = _match80(v0[None], bcodes[:, None, None]) >> 7
-                        bi1 = _match80(v1[None], bcodes[:, None, None]) >> 7
-                        acc[:, :, j] += _mma_u8(ai, bi0, bi1)
-                # epilogue: a warp buffer, then four neighbouring counts a store
-                buf = np.full((na, nb, c["WARPS"], 16 * ES), -1, np.int64)
-                for j in range(2):
-                    for e in range(4):
-                        slot = (G_ + 8 * (e >> 1)) * ES + 8 * j + 2 * T_ + (e & 1)
-                        buf[:, :, warps, slot] = acc[:, :, j, :, e] >> 7
-                plane = ((a0 + np.arange(na))[:, None] * L
-                         + b0 + np.arange(nb)[None, :])[:, :, None, None]
-                for h in range(2):
-                    r = (LANE >> 2) + 8 * h
-                    col = 4 * (LANE & 3)
-                    x = xt + 16 * (warps % WXN) + r
-                    y = yt + 16 * (warps // WXN) + col
-                    for q in range(4):
-                        v = buf[:, :, warps, r * ES + col + q]
-                        shape = v.shape
-                        ok = np.broadcast_to((x < tile) & (y + q < ylen), shape)
-                        pl = np.broadcast_to(plane, shape)[ok]
-                        xs = np.broadcast_to(x, shape)[ok]
-                        yq = np.broadcast_to(y + q, shape)[ok]
-                        assert (v[ok] >= 0).all()
-                        np.add.at(writes, (pl, xs, yq), 1)
-                        planes[pl, xs, yq] = v[ok]
+
+        def sweeps(a_lo, a_hi):
+            for a0 in range(a_lo, a_hi, G):
+                na = min(G, a_hi - a0)
+                for b0 in range(first, L, G):
+                    nb = min(G, L - b0)
+                    acodes = U32(0x01010101) * (a0 + np.arange(na, dtype=U32))
+                    bcodes = U32(0x01010101) * (b0 + np.arange(nb, dtype=U32))
+                    acc = np.zeros((na, nb, 2, c["WARPS"], 4, 32), np.int64)
+                    for a, bw in words:
+                        ai = _match80(a[None], acodes[:, None, None, None])
+                        for j, (v0, v1) in enumerate(bw):
+                            bi0 = _match80(v0[None], bcodes[:, None, None]) >> 7
+                            bi1 = _match80(v1[None], bcodes[:, None, None]) >> 7
+                            acc[:, :, j] += _mma_u8(ai, bi0, bi1)
+                    yield a0, na, b0, nb, acc
+
+        yield blk, xt, yt, sweeps
+
+
+def emulate_k3(dataT, start, tile, L, ys, ylen):
+    """K3 replayed block by block; returns (planes, writes)."""
+    c = K3C
+    WXN, ES = c["WXN"], c["ESTRIDE"]
+    planes = np.full((L * L, tile, ylen), -1, np.int64)
+    writes = np.zeros((L * L, tile, ylen), np.int64)
+    warps = np.arange(c["WARPS"])[:, None]
+    for _, xt, yt, sweeps in replay_level_products(dataT, start, tile, L, ys,
+                                                   ylen, 0):
+        for a0, na, b0, nb, acc in sweeps(0, L):
+            # epilogue: a warp buffer, then four neighbouring counts a store
+            buf = np.full((na, nb, c["WARPS"], 16 * ES), -1, np.int64)
+            for j in range(2):
+                for e in range(4):
+                    slot = (G_ + 8 * (e >> 1)) * ES + 8 * j + 2 * T_ + (e & 1)
+                    buf[:, :, warps, slot] = acc[:, :, j, :, e] >> 7
+            plane = ((a0 + np.arange(na))[:, None] * L
+                     + b0 + np.arange(nb)[None, :])[:, :, None, None]
+            for h in range(2):
+                r = (LANE >> 2) + 8 * h
+                col = 4 * (LANE & 3)
+                x = xt + 16 * (warps % WXN) + r
+                y = yt + 16 * (warps // WXN) + col
+                for q in range(4):
+                    v = buf[:, :, warps, r * ES + col + q]
+                    shape = v.shape
+                    ok = np.broadcast_to((x < tile) & (y + q < ylen), shape)
+                    pl = np.broadcast_to(plane, shape)[ok]
+                    xs = np.broadcast_to(x, shape)[ok]
+                    yq = np.broadcast_to(y + q, shape)[ok]
+                    assert (v[ok] >= 0).all()
+                    np.add.at(writes, (pl, xs, yq), 1)
+                    planes[pl, xs, yq] = v[ok]
     return planes, writes
 
 
@@ -386,6 +418,138 @@ def test_k3_indicator_matches_only_its_level():
         got = _match80(words, U32(0x01010101 * level))
         want = np.where(vals == level, U32(0x80808080), U32(0))
         np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# K4
+# ---------------------------------------------------------------------------
+
+def emulate_k4(dataT, start, tile, L, ys, ylen):
+    """K4 replayed: the wrapper's sub-block walk (``k4_sub_blocks``); per
+    sub-block the count kernel's grid, block tiles x X level groups, each
+    block writing the sweeps of its 3 X levels against Y levels 1..L-1 to
+    the slab (``CountStore``); then the epilogue kernel's reads, one thread
+    a slab pair.
+
+    Every slab slot must be written once, and each pair's epilogue must
+    read only slots written for that pair.  Returns the (L-1)^2 joint
+    counts each pair's epilogue reads, (tile, ylen, K, K), and how many
+    epilogues ran for each pair."""
+    c = K4C
+    nl = L - 1                          # levels >= 1 a side
+    BX, BY, G, WXN, PAIRS, SUB = (c[k] for k in ("BX", "BY", "G", "WXN",
+                                                  "PAIRS", "SUB_PAIRS"))
+    joint = np.full((tile, ylen, nl, nl), -1, np.int64)
+    runs = np.zeros((tile, ylen), np.int64)
+    warps = np.arange(c["WARPS"])[:, None]
+    for xo, xl, yo, yl in K.k4_sub_blocks(L, tile, ylen):
+        ntx = -(-xl // BX)
+        nblocks = ntx * -(-yl // BY)
+        stride = nblocks * PAIRS
+        assert nl * nl * stride * 4 <= K.K4_SCRATCH_BYTES
+        # the count and, for the check, the pair (x * ylen + y of the block)
+        # whose mma accumulator wrote it; -1: never written
+        vals = np.zeros(nl * nl * stride, np.int64)
+        owner = np.full(nl * nl * stride, -1, np.int64)
+        for bt, xt, yt, sweeps in replay_level_products(
+                dataT, start + xo, xl, L, ys + yo, yl, 1):
+            base = bt * PAIRS
+            for gy in range(-(-nl // G)):          # the grid's X level groups
+                a_lo = 1 + G * gy
+                for a0, na, b0, nb, acc in sweeps(a_lo, min(L, a_lo + G)):
+                    v = acc >> 7
+                    assert (v < 2 ** 31).all()
+                    for a in range(na):
+                        for b in range(nb):
+                            lv = (a0 + a - 1) * nl + b0 + b - 1
+                            for j in range(2):
+                                for e in range(4):
+                                    r = G_ + 8 * (e >> 1)
+                                    col = 8 * j + 2 * T_ + (e & 1)
+                                    slot = (lv * stride + base + warps * SUB
+                                            + r * 16 + col)
+                                    # the pair of accumulator e (mma layout)
+                                    x = xo + xt + 16 * (warps % WXN) + r
+                                    y = yo + yt + 16 * (warps // WXN) + col
+                                    assert (owner[slot] == -1).all()
+                                    owner[slot] = x * ylen + y
+                                    vals[slot] = v[a, b, j, :, e]
+        assert (owner >= 0).all()
+        # the epilogue kernel: thread i takes slot i % 2048 of block tile
+        # i / 2048 (warp sub-tile, then row-major inside it)
+        i = np.arange(stride)
+        bt, loc = i // PAIRS, i % PAIRS
+        w = loc // SUB
+        x = xo + bt % ntx * BX + 16 * (w % WXN) + loc % SUB // 16
+        y = yo + bt // ntx * BY + 16 * (w // WXN) + loc % 16
+        ok = (x < xo + xl) & (y < yo + yl)
+        x, y, at = x[ok], y[ok], i[ok]
+        np.add.at(runs, (x, y), 1)
+        for lv in range(nl * nl):
+            slots = lv * stride + at
+            np.testing.assert_array_equal(owner[slots], x * ylen + y)
+            joint[x, y, lv // nl, lv % nl] = vals[slots]
+    return joint, runs
+
+
+def _stats_from_joint(joint, dataT, marg, levels, max_vals, start, tile, L,
+                      ys, ylen, nz):
+    """The epilogue's function of the joint counts: the level-0 cells from
+    the margins, then mi_block_stats (as the plain version builds them)."""
+    from flashweave_tpu_torch.ops.univariate import mi_block_stats
+
+    n = dataT.shape[1]
+    f64 = torch.float64
+    jt = torch.from_numpy(joint).to(f64)
+    mx = marg[1:, start:start + tile].T.to(f64)
+    my = marg[1:, ys:ys + ylen].T.to(f64)
+    ctab = torch.empty((tile, ylen, L, L), dtype=f64)
+    ctab[..., 1:, 1:] = jt
+    ctab[..., 1:, 0] = mx[:, None, :] - jt.sum(dim=-1)
+    ctab[..., 0, 1:] = my[None, :, :] - jt.sum(dim=-2)
+    ctab[..., 0, 0] = (n - mx.sum(dim=1)[:, None] - my.sum(dim=1)[None, :]
+                       + jt.sum(dim=(-2, -1)))
+    stat, df, n_obs, suff = mi_block_stats(
+        ctab, levels[start:start + tile], levels[ys:ys + ylen],
+        max_vals[start:start + tile], max_vals[ys:ys + ylen], 5.0, 20.0, nz, L)
+    return stat, df.to(torch.int32), n_obs.to(torch.int32), suff
+
+
+@pytest.mark.parametrize("L,n,p,block,budget", [
+    (2, 300, 120, (5, 40, 50, 70), None),      # one level group, one sweep
+    (3, 2047, 130, (1, 33, 60, 70), None),     # n = 2,047
+    (9, 100, 150, (7, 70, 3, 140), 2),         # 3 level groups, 2 x 3 parts
+    (12, 2047, 100, (4, 40, 20, 80), None),    # n = 2,047
+    (12, 129, 130, (0, 64, 0, 128), 3),        # 2 x 1 parts
+    (21, 50, 70, (2, 33, 45, 17), None),       # last level group of 2
+    (22, 60, 90, (5, 40, 7, 80), 1),           # 4 parts of one tile
+    (48, 70, 60, (2, 40, 5, 50), 1),           # 16 level groups, 2 parts
+    (127, 40, 20, (3, 16, 1, 19), None),       # 42 level groups of 42 sweeps
+])
+def test_k4_maps(monkeypatch, L, n, p, block, budget):
+    """K4's slab writes and epilogue reads against its plain version.
+    ``budget`` (in block tiles) shrinks K4_SCRATCH_BYTES so that the
+    wrapper's walk cuts the block into several sub-blocks."""
+    rng = np.random.default_rng(L + n)
+    dataT = rng.integers(0, L, (p, n)).astype(np.int8)
+    dataT[1] = 0
+    dataT[3, : n // 2] = L - 1
+    start, tile, ys, ylen = block
+    if budget is not None:
+        per_tile = (L - 1) ** 2 * K4C["PAIRS"] * 4
+        monkeypatch.setattr(K, "K4_SCRATCH_BYTES", budget * per_tile)
+        assert len(K.k4_sub_blocks(L, tile, ylen)) > 1
+    joint, runs = emulate_k4(dataT, start, tile, L, ys, ylen)
+    assert (runs == 1).all()                       # one epilogue a pair
+    st = from_numpy_state(dataT.T.astype(np.float64), None, None, "cpu")
+    assert st.L == L and torch.equal(st.dataT, torch.from_numpy(dataT))
+    for nz in (0, 1):
+        args = (st.dataT, st.marg, st.levels, st.max_vals, start, tile, L, ys,
+                ylen, nz)
+        got = _stats_from_joint(joint, *args)
+        want = K.mi_univar_stats_planes_ref(*args, 5.0, 20.0)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 def test_load_library_builds_once_per_process(monkeypatch, tmp_path):

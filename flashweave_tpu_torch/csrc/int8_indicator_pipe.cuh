@@ -1,6 +1,7 @@
 // Pipelined tile loop of level-indicator products on the int8 tensor cores,
-// shared by K3 (mi_pair_ctabs.cu, levels 0..L-1) and K4
-// (mi_univar_stats_planes.cu, levels 1..L-1).
+// shared by K3 (mi_pair_ctabs.cu, levels 0..L-1), K4
+// (mi_univar_stats_planes.cu, levels 1..L-1) and K1 (mi_univar_stats.cu,
+// levels 1..L-1 in one sweep, L <= 4).
 //
 // One block owns a pair tile of BX X variables against BY Y variables (rows
 // of the (p, n) int8 table dataT).  Read as matrix products, the 0/1
@@ -10,10 +11,12 @@
 //
 // Work split: every warp owns a 16 x 16 pair sub-tile (warps 2 x 4, so the
 // block tile is 32 x 64) and every level product of its pairs, so all eight
-// warps do the same work at every L.  The level pairs are taken G x G at a
-// time (G = 3: 72 int32 accumulators a lane); the levels FIRST..L-1 take
-// ceil((L - FIRST) / 3)^2 sweeps over the samples, which a caller may split
-// between blocks by X level groups.
+// warps do the same work at every L.  The level pairs are taken GW x GW at
+// a time, GW a template argument (default G = 3: 72 int32 accumulators a
+// lane); the levels FIRST..L-1 take ceil((L - FIRST) / GW)^2 sweeps over the
+// samples, which a caller may split between blocks by X level groups.  A
+// caller whose levels fit one group passes their number as GW, so that no
+// indicator is formed for a level it does not count.
 //
 // Staging: 128-sample chunks of the tile's 96 rows go through a 3-stage
 // cp.async ring (16-byte copies), so two chunks are in flight while one
@@ -51,7 +54,7 @@ constexpr int WXN = 2;                 // warps along X
 constexpr int WYN = 4;                 // warps along Y
 constexpr int BX = WXN * 16;           // X variables per block (32)
 constexpr int BY = WYN * 16;           // Y variables per block (64)
-constexpr int G = 3;                   // levels a side per sweep
+constexpr int G = 3;                   // levels a side per sweep (default width)
 constexpr int CHUNK = 128;             // samples per stage
 constexpr int WINDOW = CHUNK + 16;     // aligned window of a row's chunk, bytes
 constexpr int WORDS16 = WINDOW / 16;   // 16-byte copies per row (9)
@@ -144,15 +147,15 @@ __device__ __forceinline__ uint32_t load_word(const uint32_t* stage, RowRef rr,
 }
 
 // All products of X levels [a_lo, a_hi) and Y levels FIRST..L-1 of one
-// block tile (a_lo - FIRST a multiple of G; a_lo = FIRST, a_hi = L for all
-// of them).  Called by every thread of the block; epi(a0, na, b0, nb, acc)
-// is called by every warp after each sweep with the counts of levels
-// [a0, a0 + na) x [b0, b0 + nb) of its 16 x 16 pair sub-tile:
-// acc[a][b][j][e] >> 7 is the count of X row
+// block tile, GW x GW levels a sweep (a_lo - FIRST a multiple of GW;
+// a_lo = FIRST, a_hi = L for all of them).  Called by every thread of the
+// block; epi(a0, na, b0, nb, acc) is called by every warp after each sweep
+// with the counts of levels [a0, a0 + na) x [b0, b0 + nb) of its 16 x 16
+// pair sub-tile: acc[a][b][j][e] >> 7 is the count of X row
 // 16 * (warp % WXN) + g + 8 * (e >> 1) and Y row
 // 16 * (warp / WXN) + 8 * j + 2 * q + (e & 1) of the block tile
 // (g = lane / 4, q = lane % 4), at levels a0 + a and b0 + b.
-template <int FIRST, class Epi>
+template <int FIRST, int GW = G, class Epi>
 __device__ __forceinline__ void level_products(const Tile& t, int L, int a_lo,
                                                int a_hi, uint8_t* ring,
                                                Epi& epi) {
@@ -163,15 +166,15 @@ __device__ __forceinline__ void level_products(const Tile& t, int L, int a_lo,
   const RowRef rb0 = row_ref(t, yr), rb1 = row_ref(t, yr + 8);
   const int chunks = (t.n + CHUNK - 1) / CHUNK;
 
-  for (int a0 = a_lo; a0 < a_hi; a0 += G) {
-    const int na = min(G, a_hi - a0);
-    for (int b0 = FIRST; b0 < L; b0 += G) {
-      const int nb = min(G, L - b0);
-      int acc[G][G][2][4];
+  for (int a0 = a_lo; a0 < a_hi; a0 += GW) {
+    const int na = min(GW, a_hi - a0);
+    for (int b0 = FIRST; b0 < L; b0 += GW) {
+      const int nb = min(GW, L - b0);
+      int acc[GW][GW][2][4];
 #pragma unroll
-      for (int a = 0; a < G; ++a)
+      for (int a = 0; a < GW; ++a)
 #pragma unroll
-        for (int b = 0; b < G; ++b)
+        for (int b = 0; b < GW; ++b)
 #pragma unroll
           for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -201,9 +204,9 @@ __device__ __forceinline__ void level_products(const Tile& t, int L, int a_lo,
                                  load_word(st, ra1, p0, rem),
                                  load_word(st, ra0, p1, rem),
                                  load_word(st, ra1, p1, rem)};
-          uint32_t ai[G][4];
+          uint32_t ai[GW][4];
 #pragma unroll
-          for (int a = 0; a < G; ++a) {
+          for (int a = 0; a < GW; ++a) {
             const uint32_t code = 0x01010101u * (uint32_t)(a0 + a);
 #pragma unroll
             for (int i = 0; i < 4; ++i) ai[a][i] = match80(w[i], code);
@@ -214,13 +217,13 @@ __device__ __forceinline__ void level_products(const Tile& t, int L, int a_lo,
             const uint32_t v0 = load_word(st, rb, p0, rem);
             const uint32_t v1 = load_word(st, rb, p1, rem);
 #pragma unroll
-            for (int b = 0; b < G; ++b) {
+            for (int b = 0; b < GW; ++b) {
               if (b >= nb) continue;
               const uint32_t code = 0x01010101u * (uint32_t)(b0 + b);
               const uint32_t bi0 = match80(v0, code) >> 7;
               const uint32_t bi1 = match80(v1, code) >> 7;
 #pragma unroll
-              for (int a = 0; a < G; ++a)
+              for (int a = 0; a < GW; ++a)
                 if (a < na) mma_u8(acc[a][b][j], ai[a], bi0, bi1);
             }
           }

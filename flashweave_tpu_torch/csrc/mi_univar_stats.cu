@@ -1,6 +1,7 @@
-// Fused univariate mi / mi_nz G-test of an X-block against a Y-slab.
+// Fused univariate mi / mi_nz G-test of an X-block against a Y-slab, for
+// tables of L = 2..4 levels.
 //
-// Replaces the TPU kernel flashweave_tpu/ops/pallas_kernels.py
+// Replaces the TPU kernel flashweave_tpu/ops/pallas_kernels.py:478
 // `mi_univar_stats_pallas` (bodies `_make_mi_stats_kernel_dbuf`,
 // `_make_mi_stats_kernel`, epilogue `_mi_epilogue`).  Same function: for
 // every pair (X, Y) it counts only the (L-1)^2 joint counts of levels >= 1,
@@ -8,45 +9,86 @@
 // marginals and the true row count n, applies nz slicing (0 plain, 1
 // per-variable offset from max_vals, 2 all-3-level uniform), and writes the
 // signed MI, the adjusted df, n_obs and the pre/post power check.  Nothing
-// but those four per-pair values reaches device memory.
+// but those four per-pair values reaches device memory: as on the TPU, the
+// counts never leave the SM.
 //
-// What bounds it on the card: integer compare-and-add throughput.  The
-// joint counts cost (L-1)^2 compare-and-adds per pair and sample, about
-// 4 * n * p^2 / 2 operations for L = 3 over the triangle sweep -- 4e11 at
-// n = 2048, p = 10,000.  Reads are small next to that (each staged sample
-// byte is reused by 16 * R pairs).
+// What bounds it on this card: at the 3-level slice's block (n = 2048,
+// X-block 512 against a 10,000-wide Y-slab) the data-sheet bound is the
+// four joint-count planes as int8 tensor-core products, 2 * 4 * 2048 *
+// 5.12e6 = 8.4e10 ops, 0.042 ms at 1,979 TOPS; at L = 2 it is the bytes,
+// the outputs' 17 B a pair (87 MB) and the table (21.5 MB), 0.032 ms at
+// 3.35 TB/s.  Below both, forming the level indicators costs integer
+// instructions in step with the mma (K3's loop), and the epilogue's float64
+// logs, up to L^2 a pair, run on the FP64 units.  On an H100 80GB HBM3 at
+// 700 W (chip_smoke.py phase 2, PERF.md section 6) a sweep of the loop at
+// that block takes about the same time whatever the number of products in
+// it (1 at L = 2 to 9 at L = 4), so the loop's fixed work -- staging, the
+// fragment words' loads and funnel shifts, the barriers -- sets K1's time,
+// and the epilogue adds what the other block's loop does not hide.
 //
 // What the design does about it:
-// - one block owns a (16R x 16R) output tile and loops over all n samples
-//   in 64-sample chunks staged in shared memory (the TPU's sequential grid
-//   axis and its k == 0 / k == last accumulators become this loop; no
-//   reduction across blocks);
-// - each thread owns an R x R micro-tile of pairs with R*R*(L-1)^2 int32
-//   counters indexed at compile time, so they live in registers;
-// - four samples travel as one 32-bit word: __vcmpeq4 turns a word into a
-//   per-byte level mask once per (variable, level), and one AND + popc then
-//   counts four samples of one (pair, level pair) -- a 4x cut in counting
-//   instructions over a byte-at-a-time loop;
-// - the epilogue runs in registers in float64 (cheap on the H100 next to
-//   the counting loop), so the card's decisions equal the float64 CPU path.
-// The ragged edge is masked while staging: samples past n and variables past
-// the block stage as level 0, which no joint counter counts.
-// Tensor cores, TMA and bit-plane popcounts are later work.
+// - the counts run on the pipelined loop of int8_indicator_pipe.cuh from
+//   level 1 with a group width of L - 1 (level_products<1, L - 1>): one
+//   sweep over the samples yields every joint count of a pair, and each
+//   raw word becomes exactly the L - 1 indicators a side that are counted
+//   (one at L = 2, where the default width of 3 would form three);
+// - after the sweep the ring is idle, and each warp writes its 16 x 16
+//   pairs' counts into it (int2 stores, rows of 72 ints, free of bank
+//   conflicts), so the accumulators are dead before the float64 epilogue
+//   starts: at L = 4 the 72 accumulators and the epilogue's registers would
+//   not fit the loop's 128 together;
+// - then every thread runs the float64 epilogue for 8 of the block tile's
+//   2048 pairs, one at a time in a loop (one copy of its code), pair
+//   thread + 256 s in row-major order, so that a warp's stores of each
+//   output cover 32 neighbouring pairs of one row;
+// - two blocks an SM, so one block's epilogue overlaps the other's loop;
+// - the epilogue is unchanged in arithmetic and order, so the card's
+//   decisions equal the float64 CPU path's.
+// K4 (mi_univar_stats_planes.cu) serves the same function at L = 5..127,
+// where a pair's counts no longer come out of one sweep.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_indicator_pipe.cuh"
+
 namespace {
 
-constexpr int TX = 16;              // threads along the Y (column) axis
-constexpr int TY = 16;              // threads along the X (row) axis
-constexpr int CHUNK = 64;           // samples staged per step
-constexpr int STRIDE = CHUNK + 4;   // row stride in bytes: 17 words, no bank conflicts
+using fw_pipe::BX;
+using fw_pipe::BY;
+using fw_pipe::THREADS;
+using fw_pipe::WXN;
 
+constexpr int MAX_L = 4;                 // levels 1..L-1 in one sweep
+constexpr int PAIRS = BX * BY;           // pairs of a block tile (2048)
+constexpr int RS = BY + 8;               // ints a block-tile row of the count store
+constexpr int CSTRIDE = BX * RS;         // ints a level pair of the count store
+constexpr int MAX_STORE_BYTES = (MAX_L - 1) * (MAX_L - 1) * CSTRIDE * 4;
+static_assert(2 * MAX_STORE_BYTES <= 227 * 1024,
+              "two blocks an SM with the largest count store");
+
+// Dynamic shared memory of K1 at L levels: the ring, later the count store.
 template <int L>
-struct Micro {
-  // pairs per thread along each axis: keeps R*R*(L-1)^2 counters <= 64
-  static constexpr int R = (L <= 3) ? 4 : ((L <= 5) ? 2 : 1);
+constexpr int smem_bytes() {
+  return (L - 1) * (L - 1) * CSTRIDE * 4 > fw_pipe::RING_BYTES
+             ? (L - 1) * (L - 1) * CSTRIDE * 4
+             : fw_pipe::RING_BYTES;
+}
+
+// An X-block [x_start, x_start + tile) against a Y-slab [y_start, y_start +
+// y_len) and its (tile, y_len) row-major outputs.
+struct Block {
+  const int8_t* dataT;   // (p, n) int8, contiguous, 16-byte aligned
+  int n, p, nz;
+  int x_start, tile, y_start, y_len;
+  const int* marg;       // (L, p) level marginals
+  const int* levels;     // (p,)
+  const int* max_vals;   // (p,)
+  double hps, n_obs_min;
+  double* stat;
+  int* df;
+  int* nobs;
+  bool* suff;
 };
 
 // G-test epilogue for one pair in float64 (semantics of
@@ -164,116 +206,81 @@ __device__ __forceinline__ void epilogue(
   *suff_out = suff;
 }
 
+// Epilogue of the tile loop's one sweep (levels 1..L-1 a side): every
+// warp's counts go to the count store in the idle ring,
+// store[((a-1) K + (b-1)) CSTRIDE + r RS + c] for row r and column c of the
+// block tile; then every thread runs the G-test of pairs thread + 256 s of
+// the tile from there.
 template <int L>
-__global__ void __launch_bounds__(TX * TY)
-mi_univar_stats_kernel(const int8_t* __restrict__ dataT, int n, int p,
-                       int x_start, int tile, int y_start, int y_len,
-                       const int* __restrict__ marg,
-                       const int* __restrict__ levels,
-                       const int* __restrict__ max_vals, int nz, double hps,
-                       double n_obs_min, double* __restrict__ stat,
-                       int* __restrict__ df, int* __restrict__ nobs,
-                       bool* __restrict__ suff) {
-  constexpr int R = Micro<L>::R;
-  constexpr int K = L - 1;
-  constexpr int BX = TY * R;   // X variables per block
-  constexpr int BY = TX * R;   // Y variables per block
-  __shared__ __align__(16) uint8_t sx[BX * STRIDE];
-  __shared__ __align__(16) uint8_t sy[BY * STRIDE];
+struct TileGTest {
+  const Block& B;
+  int xt, yt;   // the block tile's origin inside the block
+  int* store;
 
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * TX + tx;
-  const int bx0 = blockIdx.y * BX;   // first X of the tile owned by this block
-  const int by0 = blockIdx.x * BY;   // first Y of the slab owned by this block
-
-  int cnt[R][R][K][K];
+  __device__ __forceinline__ void operator()(
+      int, int, int, int, const int (&acc)[L - 1][L - 1][2][4]) const {
+    constexpr int K = L - 1;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int r0 = 16 * (warp % WXN) + (lane >> 2);
+    const int c0 = 16 * (warp / WXN) + 2 * (lane & 3);
+    __syncthreads();   // every warp has read the ring's last chunk
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+    for (int a = 0; a < K; ++a)
 #pragma unroll
-    for (int s = 0; s < R; ++s)
+      for (int b = 0; b < K; ++b)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<int2*>(store + (a * K + b) * CSTRIDE +
+                                     (r0 + 8 * h) * RS + c0 + 8 * j) =
+                make_int2(acc[a][b][j][2 * h] >> 7,
+                          acc[a][b][j][2 * h + 1] >> 7);
+    __syncthreads();
+#pragma unroll 1
+    for (int i = threadIdx.x; i < PAIRS; i += THREADS) {
+      const int r = i / BY, c = i % BY;
+      const int x = xt + r, y = yt + c;
+      if (x >= B.tile || y >= B.y_len) continue;
+      int joint[K][K];
 #pragma unroll
       for (int a = 0; a < K; ++a)
 #pragma unroll
-        for (int b = 0; b < K; ++b) cnt[r][s][a][b] = 0;
-
-  for (int k0 = 0; k0 < n; k0 += CHUNK) {
-    for (int idx = tid; idx < BX * CHUNK; idx += TX * TY) {
-      const int v = idx / CHUNK, c = idx % CHUNK;
-      const int xv = bx0 + v, k = k0 + c;
-      uint8_t val = 0;
-      if (xv < tile && k < n) val = (uint8_t)dataT[(size_t)(x_start + xv) * n + k];
-      sx[v * STRIDE + c] = val;
-    }
-    for (int idx = tid; idx < BY * CHUNK; idx += TX * TY) {
-      const int v = idx / CHUNK, c = idx % CHUNK;
-      const int yv = by0 + v, k = k0 + c;
-      uint8_t val = 0;
-      if (yv < y_len && k < n) val = (uint8_t)dataT[(size_t)(y_start + yv) * n + k];
-      sy[v * STRIDE + c] = val;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int c = 0; c < CHUNK; c += 4) {
-      uint32_t xm[R][K], ym[R][K];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(&sx[(ty + TY * r) * STRIDE + c]);
-#pragma unroll
-        for (int a = 0; a < K; ++a) xm[r][a] = __vcmpeq4(w, 0x01010101u * (uint32_t)(a + 1));
-      }
-#pragma unroll
-      for (int s = 0; s < R; ++s) {
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(&sy[(tx + TX * s) * STRIDE + c]);
-#pragma unroll
-        for (int b = 0; b < K; ++b) ym[s][b] = __vcmpeq4(w, 0x01010101u * (uint32_t)(b + 1));
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int s = 0; s < R; ++s)
-#pragma unroll
-          for (int a = 0; a < K; ++a)
-#pragma unroll
-            for (int b = 0; b < K; ++b) cnt[r][s][a][b] += __popc(xm[r][a] & ym[s][b]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int s = 0; s < R; ++s) {
-      const int xi = bx0 + ty + TY * r;
-      const int yj = by0 + tx + TX * s;
-      if (xi < tile && yj < y_len) {
-        int joint[K][K];
-#pragma unroll
-        for (int a = 0; a < K; ++a)
-#pragma unroll
-          for (int b = 0; b < K; ++b) joint[a][b] = cnt[r][s][a][b] >> 3;  // 8 bits per matching byte
-        const int gx = x_start + xi, gy = y_start + yj;
-        const size_t o = (size_t)xi * y_len + yj;
-        epilogue<L>(joint, marg, p, gx, gy, levels[gx], levels[gy], max_vals[gx],
-                    max_vals[gy], n, nz, hps, n_obs_min, stat + o, df + o, nobs + o,
-                    suff + o);
-      }
+        for (int b = 0; b < K; ++b)
+          joint[a][b] = store[(a * K + b) * CSTRIDE + r * RS + c];
+      const int gx = B.x_start + x, gy = B.y_start + y;
+      const size_t o = (size_t)x * B.y_len + y;
+      epilogue<L>(joint, B.marg, B.p, gx, gy, B.levels[gx], B.levels[gy],
+                  B.max_vals[gx], B.max_vals[gy], B.n, B.nz, B.hps,
+                  B.n_obs_min, B.stat + o, B.df + o, B.nobs + o, B.suff + o);
     }
   }
+};
+
+// One block a 32 x 64 block tile of the block (X tiles vary fastest, as in
+// K3 and K4): its joint counts in one sweep, then its G-tests.
+template <int L>
+__global__ void __launch_bounds__(THREADS, 2)
+mi_univar_stats_kernel(const Block B) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int ntx = (B.tile + BX - 1) / BX;
+  const int xt = (blockIdx.x % ntx) * BX, yt = (blockIdx.x / ntx) * BY;
+  const fw_pipe::Tile t{B.dataT, B.n, (size_t)B.p * B.n, B.x_start + xt,
+                        min(BX, B.tile - xt), B.y_start + yt,
+                        min(BY, B.y_len - yt)};
+  TileGTest<L> epi{B, xt, yt, reinterpret_cast<int*>(smem)};
+  fw_pipe::level_products<1, L - 1>(t, L, 1, L, smem, epi);
 }
 
 template <int L>
-cudaError_t launch(const int8_t* dataT, int n, int p, int x_start, int tile,
-                   int y_start, int y_len, const int* marg, const int* levels,
-                   const int* max_vals, int nz, double hps, double n_obs_min,
-                   double* stat, int* df, int* nobs, bool* suff,
-                   cudaStream_t stream) {
-  constexpr int R = Micro<L>::R;
-  const dim3 block(TX, TY);
-  const dim3 grid((y_len + TX * R - 1) / (TX * R), (tile + TY * R - 1) / (TY * R));
-  mi_univar_stats_kernel<L><<<grid, block, 0, stream>>>(
-      dataT, n, p, x_start, tile, y_start, y_len, marg, levels, max_vals, nz,
-      hps, n_obs_min, stat, df, nobs, suff);
+cudaError_t launch(const Block& B, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<L>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      mi_univar_stats_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (attr != cudaSuccess) return attr;
+  const int blocks = ((B.tile + BX - 1) / BX) * ((B.y_len + BY - 1) / BY);
+  mi_univar_stats_kernel<L><<<blocks, THREADS, bytes, stream>>>(B);
   return cudaGetLastError();
 }
 
@@ -281,39 +288,33 @@ cudaError_t launch(const int8_t* dataT, int n, int p, int x_start, int tile,
 
 extern "C" {
 
-// Launches the kernel on `stream` and returns the cudaError_t of the launch
-// (0 on success).  dataT: (p, n) int8 contiguous; marg: (L, p) int32;
-// levels / max_vals: (p,) int32; outputs (tile, y_len) row-major.
+// Launches K1 on `stream` and returns the cudaError_t of the launch (0 on
+// success).  dataT: (p, n) int8 contiguous, 16-byte aligned, values in
+// 0..L-1, n < 2^24; marg: (L, p) int32; levels / max_vals: (p,) int32;
+// outputs (tile, y_len) row-major; L = 2..4.
 int fw_mi_univar_stats(const void* dataT, int n, int p, int x_start, int tile,
                        int y_start, int y_len, const void* marg,
                        const void* levels, const void* max_vals, int L, int nz,
                        double hps, double n_obs_min, void* stat, void* df,
                        void* nobs, void* suff, void* stream) {
-  const auto* d = static_cast<const int8_t*>(dataT);
-  const auto* m = static_cast<const int*>(marg);
-  const auto* lv = static_cast<const int*>(levels);
-  const auto* mv = static_cast<const int*>(max_vals);
-  auto* st = static_cast<double*>(stat);
-  auto* dfp = static_cast<int*>(df);
-  auto* no = static_cast<int*>(nobs);
-  auto* su = static_cast<bool*>(suff);
-  auto s = static_cast<cudaStream_t>(stream);
-#define FW_CASE(LV)                                                          \
-  case LV:                                                                   \
-    return (int)launch<LV>(d, n, p, x_start, tile, y_start, y_len, m, lv, mv, \
-                           nz, hps, n_obs_min, st, dfp, no, su, s);
+  if (L < 2 || L > MAX_L || n <= 0 || n >= (1 << 24) || tile <= 0 ||
+      y_len <= 0 || (reinterpret_cast<uintptr_t>(dataT) & 15))
+    return (int)cudaErrorInvalidValue;
+  const Block B{static_cast<const int8_t*>(dataT), n, p, nz, x_start, tile,
+                y_start, y_len, static_cast<const int*>(marg),
+                static_cast<const int*>(levels),
+                static_cast<const int*>(max_vals), hps, n_obs_min,
+                static_cast<double*>(stat), static_cast<int*>(df),
+                static_cast<int*>(nobs), static_cast<bool*>(suff)};
+  const auto s = static_cast<cudaStream_t>(stream);
   switch (L) {
-    FW_CASE(2)
-    FW_CASE(3)
-    FW_CASE(4)
-    FW_CASE(5)
-    FW_CASE(6)
-    FW_CASE(7)
-    FW_CASE(8)
+    case 2:
+      return (int)launch<2>(B, s);
+    case 3:
+      return (int)launch<3>(B, s);
     default:
-      return (int)cudaErrorInvalidValue;
+      return (int)launch<4>(B, s);
   }
-#undef FW_CASE
 }
 
 const char* fw_cuda_error_string(int err) {

@@ -2,8 +2,8 @@
 
 - K1, the fused univariate G-test (``csrc/mi_univar_stats.cu``), replaces
   the TPU kernel ``flashweave_tpu/ops/pallas_kernels.py:mi_univar_stats_pallas``.
-  :func:`mi_univar_stats` is its wrapper, :func:`mi_univar_stats_ref` its
-  plain PyTorch version (pair tables, then ``mi_block_stats``).
+  :func:`mi_univar_stats` is its wrapper (L = 2..4), :func:`mi_univar_stats_ref`
+  its plain PyTorch version (pair tables, then ``mi_block_stats``).
 - K2, the fz_nz masked correlation (``csrc/fz_nz_stats.cu``), replaces
   ``pallas_kernels.py:fz_nz_moments`` (through ``fz_nz_block_pallas``).
   :func:`fz_nz_stats` is its wrapper, :func:`fz_nz_stats_ref` its plain
@@ -17,7 +17,7 @@
   ``pallas_kernels.py:mi_univar_stats_planes``.
   :func:`mi_univar_stats_planes` is its wrapper (K1's signature, L = 2..127),
   :func:`mi_univar_stats_planes_ref` its plain version (indicator planes, one
-  product, the level-0 cells rebuilt from the margins).  K3 and K4 both run
+  product, the level-0 cells rebuilt from the margins).  K1, K3 and K4 run
   the pipelined int8 tile loop ``csrc/int8_indicator_pipe.cuh``.
 - On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
   tensor it runs the plain version.  Each counts its launches in
@@ -49,12 +49,13 @@ SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# L supported by K1 (its template instantiations)
-K1_LEVELS = range(2, 9)
+# L supported by K1: levels 1..L-1 in one sweep of the tile loop (its
+# template instantiations)
+K1_LEVELS = range(2, 5)
 # L supported by K3 and K4: int8 levels 0..126, leaving the pad value 127
 # free
 PLANES_LEVELS = range(2, 128)
-# K3 and K4 sum 128 per joint match in int32 (int8_indicator_pipe.cuh)
+# K1, K3 and K4 sum 128 per joint match in int32 (int8_indicator_pipe.cuh)
 PIPE_MAX_SAMPLES = 1 << 24
 # K4's block tile, X x Y pairs (int8_indicator_pipe.cuh's BX x BY)
 K4_TILE = (32, 64)
@@ -245,7 +246,8 @@ def mi_univar_stats(dataT, marg, levels, max_vals, start, tile, L, y_start=0,
       nz: 0 plain, 1 per-variable nz offsets, 2 nz-uniform (L == 3 and every
         max_val > 1).
     Returns (stat float64, df int32, n_obs int32, suff bool), each
-    (tile, y_len).  CUDA tensors run K1; CPU tensors run the plain version.
+    (tile, y_len).  CUDA tensors run K1 (L = 2..4, n < 2^24, the table
+    16-byte aligned); CPU tensors run the plain version.
     """
     p, n = dataT.shape
     if y_len is None:
@@ -254,6 +256,7 @@ def mi_univar_stats(dataT, marg, levels, max_vals, start, tile, L, y_start=0,
         return mi_univar_stats_ref(dataT, marg, levels, max_vals, start, tile,
                                    L, y_start, y_len, nz, hps, n_obs_min)
     _check_block("K1", dataT, L, K1_LEVELS, start, tile, y_start, y_len)
+    _check_pipe_table("K1", dataT)
     _check_stats_args(dataT, marg, levels, max_vals, L, nz)
     stat, df, nobs, suff = _stats_outputs(tile, y_len, dataT.device)
     lib, _ = load_library()
@@ -314,7 +317,8 @@ def y_indicator_planes(data, L, ty, tn):
 
 
 def _check_pipe_table(who, dataT):
-    """What the int8 pipe (K3, K4) needs of the table beyond _check_block."""
+    """What the int8 pipe (K1, K3, K4) needs of the table beyond
+    _check_block."""
     if dataT.shape[1] >= PIPE_MAX_SAMPLES or dataT.data_ptr() % 16:
         raise ValueError(f"{who} needs n < {PIPE_MAX_SAMPLES} and a 16-byte "
                          "aligned table")

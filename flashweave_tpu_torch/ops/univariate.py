@@ -8,9 +8,10 @@ the CPU:
 
 - mi / mi_nz: (stat, df, n_obs, suff) from the fused G-test, chosen from
   the table's level count L before any launch (:func:`mi_block_fn`): K1
-  (:func:`..ops.kernels.mi_univar_stats`) for L = 2..8, K4
-  (:func:`..ops.kernels.mi_univar_stats_planes`, the joint counts on the
-  int8 tensor cores) for L = 9..127, and for L >= 128 the plain
+  (:func:`..ops.kernels.mi_univar_stats`, one sweep of the int8 tile loop
+  with the epilogue fused) for L = 2..4, K4
+  (:func:`..ops.kernels.mi_univar_stats_planes`, the joint counts through a
+  slab in device memory) for L = 5..127, and for L >= 128 the plain
   pair-table route (:func:`..ops.kernels.mi_univar_stats_ref`, the JAX
   package's XLA route there) on an int16 table, with the tile cut so that
   one block's float64 tables stay under ~1 GB (:func:`_pair_table_tile`);
@@ -261,10 +262,11 @@ class UnivarResult:
 
 def mi_block_fn(L: int):
     """The default block function of the mi / mi_nz pass for a table of L
-    levels: K1 for L <= 8, K4 for L = 9..127 (as the JAX package runs its
-    Pallas kernel for every L < 128), the plain pair-table route past that
-    (as the JAX package takes its XLA route)."""
-    if L < K1_LEVELS.stop:
+    levels: K1 for L = 2..4 and K4 for L = 5..127 (as the JAX package runs
+    its Pallas kernel for every L < 128; the split is the faster kernel at
+    each L on an H100, PERF.md), the plain pair-table route past that (as
+    the JAX package takes its XLA route)."""
+    if L in K1_LEVELS:
         return mi_univar_stats
     if L < PLANES_LEVELS.stop:
         return mi_univar_stats_planes
@@ -383,8 +385,8 @@ def pw_univar_neighbors(
     Without it the table is uploaded here.  ``block_fn`` replaces the block
     function.  fz_nz: default :func:`..ops.kernels.fz_nz_stats` (K2), or its
     plain ``fz_nz_stats_ref``.  mi / mi_nz: default :func:`mi_block_fn`
-    (K1 for L <= 8, K4 for L = 9..127, plain past that); the choices are
-    :func:`..ops.kernels.mi_univar_stats` (K1, L = 2..8),
+    (K1 for L <= 4, K4 for L = 5..127, plain past that); the choices are
+    :func:`..ops.kernels.mi_univar_stats` (K1, L = 2..4),
     :func:`..ops.kernels.mi_univar_stats_planes` (K4, L = 2..127),
     :func:`mi_planes_block` (K3's planes, then :func:`mi_planes_stats`) and
     the plain :func:`..ops.kernels.mi_univar_stats_ref`, used to check the

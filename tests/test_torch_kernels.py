@@ -136,6 +136,41 @@ def test_wrapper_rejects_other_devices():
         K.mi_univar_stats(t, t, t, t, 0, 4, 3)
 
 
+def test_chip_smoke_ptxas_report_names_each_kernel():
+    """chip_smoke.py's phase-1 report: registers, stack and spills of each
+    kernel (K1 by its level count) from nvcc's -Xptxas -v lines, with a
+    device function's properties and other lines left out."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    k1 = "_ZN51_GLOBAL__N__f2_18_mi_univar_stats_cu_25b122mi_univar_stats_kernelILi3EEEvNS_5BlockE"
+    count = ("_ZN58_GLOBAL__N__a1_25_mi_univar_stats_planes_cu_3c35"
+             "mi_univar_stats_planes_count_kernelENS_5BlockEPi")
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{k1}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {k1}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 107 registers, used 1 barriers",
+        "ptxas info    : Function properties for __internal_trig_reduction",
+        "    40 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        f"ptxas info    : Compiling entry function '{count}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {count}",
+        "    1024 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers, 480 bytes cmem[0]",
+    ])
+    assert smoke.ptxas_report(log) == {
+        "mi_univar_stats<3>": dict(stack=0, spill_stores=0, spill_loads=0,
+                                   registers=107),
+        "mi_univar_stats_planes_count": dict(stack=1024, spill_stores=4,
+                                             spill_loads=12, registers=128)}
+    assert smoke.kernel_key("_ZN3fooEv") is None
+
+
 def test_build_needs_nvcc(monkeypatch):
     """Without nvcc the build raises instead of falling back."""
     monkeypatch.setenv("PATH", "")

@@ -184,12 +184,13 @@ def test_mi_planes_stats_matches_jax(L, nz):
 
 
 def test_block_fn_chosen_from_levels():
-    """K1 for L <= 8, K4 for L = 9..127, decided from L alone."""
-    for L in range(2, 9):
+    """K1 for L = 2..4, K4 for L = 5..127 (the faster kernel at each L on
+    the card, PERF.md), decided from L alone."""
+    for L in range(2, 5):
         assert U.mi_block_fn(L) is K.mi_univar_stats
-    for L in range(9, 128):
+    for L in range(5, 128):
         assert U.mi_block_fn(L) is K.mi_univar_stats_planes
-    assert K.K1_LEVELS == range(2, 9) and K.PLANES_LEVELS == range(2, 128)
+    assert K.K1_LEVELS == range(2, 5) and K.PLANES_LEVELS == range(2, 128)
 
 
 def test_k4_tile_fits_its_store():

@@ -1,7 +1,7 @@
 """The index maps of K2 (``csrc/fz_nz_stats.cu``), K3
-(``csrc/mi_pair_ctabs.cu``) and K4 (``csrc/mi_univar_stats_planes.cu``),
-the last two over ``csrc/int8_indicator_pipe.cuh``, emulated in numpy on
-the CPU.
+(``csrc/mi_pair_ctabs.cu``), K4 (``csrc/mi_univar_stats_planes.cu``) and K1
+(``csrc/mi_univar_stats.cu``), the last three over
+``csrc/int8_indicator_pipe.cuh``, emulated in numpy on the CPU.
 
 The CUDA kernels run only on the card.  These tests replay, lane by lane,
 the address arithmetic of each kernel -- the copies of its staging, the
@@ -13,13 +13,18 @@ read from their sources, and check that:
 - every output element is written exactly once;
 - the emulated results equal the plain versions: K2's N exactly and r
   within rtol 1e-9 / atol 1e-12 (the emulation sums in another order), NaN
-  positions equal; K3's planes and K4's results exactly.
+  positions equal; K3's planes and K4's results exactly; K1's integers
+  exactly and its stat within rtol 1e-9 / atol 1e-15 (K1's plain version
+  counts its tables by another route, and an independent pair's MI is 0
+  on one side and ~1e-18 on the other).
 K3 is replayed at every level-group layout the kernel takes (L = 2, 3, 12,
 21, 127), with n not a multiple of 16 (unaligned rows) and ragged tiles;
 K4 from level 1 at L = 2, 3, 9, 12, 21, 22, 48 and 127, by X level groups,
 through its slab of counts walked in one or several sub-blocks, with
-ragged tiles and n = 2,047; K2 with ragged tiles and samples, odd p and
-offsets, and an unaligned base.
+ragged tiles and n = 2,047; K1 from level 1 in one sweep of width L - 1 at
+L = 2, 3, 4 through its count store in the ring, with ragged tiles and
+n = 2,047; K2 with ragged tiles and samples, odd p and offsets, and an
+unaligned base.
 """
 
 import re
@@ -55,6 +60,7 @@ def _constants(*names):
 K2C = _constants("fz_nz_stats.cu")
 K3C = _constants("int8_indicator_pipe.cuh", "mi_pair_ctabs.cu")
 K4C = _constants("int8_indicator_pipe.cuh", "mi_univar_stats_planes.cu")
+K1C = _constants("int8_indicator_pipe.cuh", "mi_univar_stats.cu")
 LANE = np.arange(32)
 G_, T_ = LANE >> 2, LANE & 3          # mma groupID, thread in group
 
@@ -74,6 +80,16 @@ def test_constants_parsed():
     assert (K4C["BX"], K4C["BY"]) == K.K4_TILE
     assert K4C["PAIRS"] == K4C["BX"] * K4C["BY"] == 8 * K4C["SUB_PAIRS"]
     assert K4C["PAIRS"] % K4C["EPI_THREADS"] == 0
+    # K1: one sweep of levels 1..L-1 for the L it serves; its count store
+    # holds a block tile's counts in rows of RS ints (RS % 32 == 8: a
+    # half-warp's int2 stores hit 32 distinct banks), and two blocks with
+    # the larger of the ring and the store fit on an SM
+    assert K1C["MAX_L"] == K.K1_LEVELS.stop - 1 and K.K1_LEVELS.start == 2
+    assert K1C["PAIRS"] == K1C["BX"] * K1C["BY"]
+    assert K1C["PAIRS"] % K1C["THREADS"] == 0
+    assert K1C["RS"] >= K1C["BY"] and K1C["RS"] % 32 == 8
+    assert K1C["CSTRIDE"] == K1C["BX"] * K1C["RS"]
+    assert 2 * max(K1C["RING_BYTES"], K1C["MAX_STORE_BYTES"]) <= 227 * 1024
 
 
 # ---------------------------------------------------------------------------
@@ -271,19 +287,22 @@ def _mma_u8(a, b0, b1):
                      for e in range(4)], axis=3)
 
 
-def replay_level_products(dataT, start, tile, L, ys, ylen, first):
-    """``level_products<first>`` of int8_indicator_pipe.cuh replayed block
-    tile by block tile (block tiles in launch order, X tiles fastest).
+def replay_level_products(dataT, start, tile, L, ys, ylen, first, gw=None):
+    """``level_products<first, gw>`` of int8_indicator_pipe.cuh replayed
+    block tile by block tile (block tiles in launch order, X tiles
+    fastest); ``gw`` levels a side a sweep, the header's G by default.
     Yields (blk, xt, yt, sweeps): the block tile's origin inside the block
     and ``sweeps(a_lo, a_hi)``, the sweeps of X levels [a_lo, a_hi) against
     Y levels first..L-1, each (a0, na, b0, nb, acc) with acc (na, nb, 2,
     WARPS, 4, 32) the int64 accumulators of levels a0 + a, b0 + b (128 a
-    match)."""
+    match).  As in the kernel, every raw X word becomes gw indicators, of
+    which the first na are counted."""
     c = K3C
     p, n = dataT.shape
     raw = dataT.astype(np.int8).view(np.uint8).ravel()
     total = p * n
-    BX, BY, G, CHUNK, WINDOW = (c[k] for k in ("BX", "BY", "G", "CHUNK", "WINDOW"))
+    BX, BY, CHUNK, WINDOW = (c[k] for k in ("BX", "BY", "CHUNK", "WINDOW"))
+    G = c["G"] if gw is None else gw
     WXN, PAD = c["WXN"], U32(0x7F7F7F7F)
     ntx = -(-tile // BX)
     warps = np.arange(c["WARPS"])[:, None]
@@ -340,11 +359,13 @@ def replay_level_products(dataT, start, tile, L, ys, ylen, first):
                 na = min(G, a_hi - a0)
                 for b0 in range(first, L, G):
                     nb = min(G, L - b0)
-                    acodes = U32(0x01010101) * (a0 + np.arange(na, dtype=U32))
+                    acodes = U32(0x01010101) * (a0 + np.arange(G, dtype=U32))
                     bcodes = U32(0x01010101) * (b0 + np.arange(nb, dtype=U32))
                     acc = np.zeros((na, nb, 2, c["WARPS"], 4, 32), np.int64)
                     for a, bw in words:
                         ai = _match80(a[None], acodes[:, None, None, None])
+                        assert ai.shape[0] == G       # indicators a raw word
+                        ai = ai[:na]
                         for j, (v0, v1) in enumerate(bw):
                             bi0 = _match80(v0[None], bcodes[:, None, None]) >> 7
                             bi1 = _match80(v1[None], bcodes[:, None, None]) >> 7
@@ -550,6 +571,97 @@ def test_k4_maps(monkeypatch, L, n, p, block, budget):
         want = K.mi_univar_stats_planes_ref(*args, 5.0, 20.0)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# K1
+# ---------------------------------------------------------------------------
+
+def emulate_k1(dataT, start, tile, L, ys, ylen):
+    """K1 replayed: per block tile, one sweep of X and Y levels 1..L-1 with a
+    group width of L - 1; the counts stored into the ring by every warp
+    (``TileGTest``, int2 stores of neighbouring columns); then every
+    thread's G-tests, pair thread + THREADS * s of the tile in row-major
+    order, each reading its (L-1)^2 counts from the store.
+
+    Every store slot must be written once a block tile, inside the ring or
+    the store's own bytes, with each half-warp's int2 stores on 32 distinct
+    banks; each pair's epilogue must read only slots written with its own
+    counts.  Returns the joint counts each pair's epilogue reads, (tile,
+    ylen, K, K), and how many epilogues wrote each pair."""
+    c = K1C
+    nl = L - 1
+    BX, BY, WXN, RS, CS, THREADS, PAIRS = (
+        c[k] for k in ("BX", "BY", "WXN", "RS", "CSTRIDE", "THREADS", "PAIRS"))
+    smem_ints = max(c["RING_BYTES"], nl * nl * CS * 4) // 4
+    joint = np.full((tile, ylen, nl, nl), -1, np.int64)
+    runs = np.zeros((tile, ylen), np.int64)
+    warps = np.arange(c["WARPS"])[:, None]
+    r0 = 16 * (warps % WXN) + G_                   # (warps, lanes)
+    c0 = 16 * (warps // WXN) + 2 * T_
+    for _, xt, yt, sweeps in replay_level_products(dataT, start, tile, L, ys,
+                                                   ylen, 1, gw=nl):
+        done = list(sweeps(1, L))
+        assert len(done) == 1                      # one sweep a pair
+        a0, na, b0, nb, acc = done[0]
+        assert (a0, na, b0, nb) == (1, nl, 1, nl)  # no indicator unused
+        store = np.full(smem_ints, -1, np.int64)
+        # the block-tile pair whose count a slot holds; -1: never written
+        owner = np.full(smem_ints, -1, np.int64)
+        for a in range(nl):
+            for b in range(nl):
+                for j in range(2):
+                    for h in range(2):
+                        slot = (a * nl + b) * CS + (r0 + 8 * h) * RS + c0 + 8 * j
+                        assert (slot % 2 == 0).all()          # int2 aligned
+                        for half in (slice(0, 16), slice(16, 32)):
+                            banks = np.concatenate([slot[:, half], slot[:, half] + 1],
+                                                   axis=1) % 32
+                            assert all(len(set(row)) == 32 for row in banks)
+                        for e in range(2):
+                            assert (owner[slot + e] == -1).all()
+                            owner[slot + e] = (r0 + 8 * h) * BY + c0 + 8 * j + e
+                            store[slot + e] = acc[a, b, j, :, 2 * h + e] >> 7
+        i = np.arange(PAIRS)                       # thread i % THREADS, step i // THREADS
+        r, col = i // BY, i % BY
+        x, y = xt + r, yt + col
+        ok = (x < tile) & (y < ylen)
+        for a in range(nl):
+            for b in range(nl):
+                slots = (a * nl + b) * CS + r[ok] * RS + col[ok]
+                np.testing.assert_array_equal(owner[slots], i[ok])
+                joint[x[ok], y[ok], a, b] = store[slots]
+        np.add.at(runs, (x[ok], y[ok]), 1)
+    return joint, runs
+
+
+@pytest.mark.parametrize("L,n,p,block,nzs", [
+    (2, 300, 120, (5, 40, 50, 70), (0, 1)),         # one indicator a side
+    (3, 2047, 130, (1, 33, 60, 70), (0, 1, 2)),     # n = 2,047, ragged tiles
+    (3, 129, 200, (0, 64, 0, 128), (0, 1, 2)),      # whole block tiles
+    (4, 2047, 90, (7, 40, 3, 80), (0, 1)),          # the store past the ring
+])
+def test_k1_maps(L, n, p, block, nzs):
+    """K1's sweep, count store and epilogue map against its plain version."""
+    rng = np.random.default_rng(L + n)
+    dataT = rng.integers(0, L, (p, n)).astype(np.int8)
+    if 2 not in nzs:                # nz 2 needs every variable at 3 levels
+        dataT[1] = 0
+        dataT[3, : n // 2] = L - 1
+    start, tile, ys, ylen = block
+    joint, runs = emulate_k1(dataT, start, tile, L, ys, ylen)
+    assert (runs == 1).all()                       # every pair written once
+    st = from_numpy_state(dataT.T.astype(np.float64), None, None, "cpu")
+    assert st.L == L and torch.equal(st.dataT, torch.from_numpy(dataT))
+    for nz in nzs:
+        args = (st.dataT, st.marg, st.levels, st.max_vals, start, tile, L, ys,
+                ylen, nz)
+        got = _stats_from_joint(joint, *args)
+        want = K.mi_univar_stats_ref(*args, 5.0, 20.0)
+        for g, w in zip(got[1:], want[1:]):
+            assert torch.equal(g, w)
+        assert want[3].any()
+        torch.testing.assert_close(got[0], want[0], rtol=1e-9, atol=1e-15)
 
 
 def test_load_library_builds_once_per_process(monkeypatch, tmp_path):

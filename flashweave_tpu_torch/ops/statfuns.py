@@ -9,10 +9,14 @@ src/statfuns.jl).  Two halves:
   the JAX package's numpy branch, so p-values and FDR decisions agree bit
   for bit;
 - tensor functions (:func:`mi_stats`, :func:`sufficient_power`) that run on
-  whatever device their inputs live on, in the inputs' float dtype.
+  whatever device their inputs live on, in the inputs' float dtype, and the
+  float64 log-space p-values of the univariate extraction
+  (:func:`log_erfc`, :func:`mi_logpval_smalldf`, :func:`fz_logpval`).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -220,3 +224,84 @@ def sufficient_power(levels_x, levels_y, n_obs, hps, levels_z=None):
                         n_obs / torch.where(cells > 0, cells, 1.0),
                         torch.inf)
     return ratio > hps
+
+
+# ---------------------------------------------------------------------------
+# log-space p-values, float64 tensors
+# ---------------------------------------------------------------------------
+
+# erfc(z) is a normal float64 number up to z ~ 26.5 (erfc(26) ~ 5.7e-296)
+ERFC_DIRECT_MAX = 26.0
+
+
+def log_erfc(z: torch.Tensor) -> torch.Tensor:
+    """log(erfc(z)) for z >= 0, stable far into the tail.
+
+    Directly evaluated while erfc(z) is a normal float64 number (z < 26);
+    past that the asymptotic expansion erfc(z) ~ e^{-z^2}/(z sqrt(pi)) *
+    (1 - 1/(2 z^2) + 3/(4 z^4) - 15/(8 z^6) + 105/(16 z^8)), whose first
+    omitted term is below 3e-13 relative there.  The JAX package switches to
+    a 3-term expansion at z = 8, the point where float32 erfc underflows,
+    which costs float64 up to 7e-6 relative in p (ROADMAP queue 3)."""
+    zs = torch.clamp(z, min=1e-30)
+    small = torch.log(torch.special.erfc(torch.clamp(z, max=ERFC_DIRECT_MAX)))
+    z2 = zs * zs
+    w = 1.0 / z2
+    series = w * (-0.5 + w * (0.75 + w * (-1.875 + w * 6.5625)))
+    large = -z2 - torch.log(zs * math.sqrt(math.pi)) + torch.log1p(series)
+    return torch.where(z < ERFC_DIRECT_MAX, small, large)
+
+
+def _logsumexp2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    m = torch.maximum(a, b)
+    m = torch.where(torch.isfinite(m), m, 0.0)  # both -inf
+    return m + torch.log(torch.exp(a - m) + torch.exp(b - m))
+
+
+def mi_logpval_smalldf(mi: torch.Tensor, df: torch.Tensor, n_obs: torch.Tensor,
+                       max_df: int) -> torch.Tensor:
+    """log of the chi2 G-test p-value for integer 0 <= df <= max_df
+    (log(mi_pval(...)); df <= 0 gives log 1), in log space so that
+    ultra-significant pairs keep a total order where p underflows.
+
+    With x = g/2 = |mi| * n_obs:
+      df = 2k   : Q = e^{-x} sum_{i<k} x^i / i!
+      df = 2k+1 : Q = erfc(sqrt(x)) + e^{-x} sum_{1<=i<=k} x^{i-1/2} / G(i+1/2)
+    Each branch's logsumexp chain is a prefix of the next one's, built in
+    the JAX package's order of accumulation (its ``mi_logpval_smalldf``),
+    so the value for each df does not depend on ``max_df``."""
+    x = torch.abs(mi) * n_obs.to(mi.dtype)               # g/2
+    logx = torch.log(torch.clamp(x, min=1e-300))
+    ler = log_erfc(torch.sqrt(x))
+    out = torch.zeros_like(x)                            # df <= 0 -> log 1
+    acc_e = torch.zeros_like(x)                          # i = 0 term
+    acc_o = None
+    for d in range(1, max_df + 1):
+        k = d // 2
+        if d % 2 == 0:
+            logq = -x + acc_e if k > 1 else -x
+            # extend the chain for the next even branch (the i = k term)
+            acc_e = _logsumexp2(acc_e, k * logx - math.lgamma(k + 1))
+        elif k == 0:
+            logq = ler
+        else:
+            t = (k - 0.5) * logx - math.lgamma(k + 0.5)
+            acc_o = t if acc_o is None else _logsumexp2(acc_o, t)
+            logq = _logsumexp2(ler, -x + acc_o)
+        out = torch.where(df == d, logq, out)
+    return torch.clamp(out, max=0.0)
+
+
+def fisher_z_tensor(r: torch.Tensor, n: torch.Tensor, len_z: int) -> torch.Tensor:
+    """:func:`fisher_z_transform` on tensors: the z-statistic of a (partial)
+    correlation r over n observations (reference: src/statfuns.jl:3-11)."""
+    sample_factor = (n - len_z - 3).to(torch.float64)
+    z = (torch.sqrt(torch.clamp(sample_factor, min=0.0)) / 2.0) * torch.log(
+        (1.0 + r) / (1.0 - r))
+    return torch.where(sample_factor > 0, z, 0.0)
+
+
+def fz_logpval(stat: torch.Tensor, n: torch.Tensor, len_z: int) -> torch.Tensor:
+    """log of the two-sided Fisher-z normal p-value (log-space counterpart of
+    :func:`fz_pval`): log(erfc(|z| / sqrt(2)))."""
+    return log_erfc(torch.abs(fisher_z_tensor(stat, n, len_z)) / math.sqrt(2.0))

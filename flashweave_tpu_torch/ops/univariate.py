@@ -18,17 +18,21 @@ the CPU:
 - fz_nz: the masked Pearson r and the joint nonzero count N
   (:func:`..ops.kernels.fz_nz_stats`, K2; plain version :func:`fz_nz_block`).
 
-The per-pair aggregates are condensed on the host, where p-values and the
-Benjamini-Hochberg correction run in float64 (the reference keeps all
-statistics in Float64).
+By default the blocks never leave the device (:func:`_extract`): each
+block's float64 log p-values (``statfuns.mi_logpval_smalldf`` /
+``fz_logpval``) are computed beside its kernel outputs, only the candidate
+pairs below a BH-safe edge are kept, Benjamini-Hochberg runs in log space
+over them on the device, and only the significant pairs reach the host.
+``return_result=True`` keeps the host path: every block condensed on the
+host into p^2/2 float64 vectors, scipy p-values and BH there (the
+reference keeps all statistics in Float64).
 
-fz raises ``NotImplementedError`` (ROADMAP queue 1 item 7).  The two-pass
-device extraction of the JAX package (its ``_extract_scan``) is ROADMAP item
-X3.
+fz raises ``NotImplementedError`` (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -38,6 +42,7 @@ from . import statfuns as sf
 from .kernels import (K1_LEVELS, PLANES_LEVELS, fz_nz_stats, mi_univar_stats,
                       mi_univar_stats_planes, mi_univar_stats_ref,
                       pair_ctab_planes)
+from ..types import PSortedNbrs
 from ..utils.misc import is_zero_adjusted, isdiscrete
 
 
@@ -283,14 +288,22 @@ def _pair_table_tile(tile_sz: int, L: int, p: int) -> int:
     return max(1, min(tile_sz, PAIR_TABLE_BYTES // (8 * L * L * p)))
 
 
-def _mi_pass(data, test_name, hps, n_obs_min, levels, max_vals, tile_sz,
-             state, device, block_fn):
-    """(stats, pvals, suff) of the mi / mi_nz pass (reference:
-    src/tests.jl:28-103): kernel blocks, condensed, float64 G-test
-    p-values."""
-    n, p = data.shape
+def _sweep_blocks(p: int, tile_sz: int):
+    """(start, tile, y_start, y_len) of every block of the triangle sweep."""
+    slab = _y_slabs(p, tile_sz, triangle=True)
+    for s in range(0, p, tile_sz):
+        y_start, y_len = slab(s)
+        yield s, min(tile_sz, p - s), y_start, y_len
+
+
+def _mi_blocks(data, test_name, hps, n_obs_min, levels, max_vals, tile_sz,
+               state, device, block_fn):
+    """The mi / mi_nz pass's block function, bound to the table on the
+    device: returns (block, tile, max_df), where block(s, t, y_start, y_len)
+    gives (stat, df, n_obs, suff) and max_df bounds every df of the table.
+    """
+    p = data.shape[1]
     nz = int(is_zero_adjusted(test_name))
-    n_pairs = p * (p - 1) // 2
     if state is None:
         from ..state import from_numpy_state
 
@@ -303,17 +316,40 @@ def _mi_pass(data, test_name, hps, n_obs_min, levels, max_vals, tile_sz,
     if nz and L == 3 and (state.max_vals_np > 1).all():
         # 3-state nz flag: 2 = nz-UNIFORM (every variable 3-level)
         nz = 2
+    # df counts a pair table's nonzero rows and columns, so it is at most
+    # (lv - 1)^2 for lv the smaller of L and the most levels of a variable
+    max_lv = min(L, int(state.levels_np.max(initial=1)))
+    max_df = (max_lv - 1) ** 2
+
+    def block(s, t, y_start, y_len):
+        return block_fn(state.dataT, state.marg, state.levels, state.max_vals,
+                        s, t, L, y_start, y_len, nz, float(hps),
+                        float(n_obs_min))
+
+    return block, tile_sz, max_df
+
+
+def _fz_nz_blocks(data, table, device, block_fn):
+    """The fz_nz pass's block function (default K2) bound to the float64
+    table on the device: block(s, t, y_start, y_len) gives (r, N)."""
+    if block_fn is None:
+        block_fn = fz_nz_stats
+    if table is None:
+        table = put_continuous(data, device)
+    return lambda s, t, y_start, y_len: block_fn(table, s, t, y_start, y_len)
+
+
+def _mi_pass(block, p, tile_sz):
+    """(stats, pvals, suff) of the mi / mi_nz host path (reference:
+    src/tests.jl:28-103): kernel blocks, condensed, float64 G-test
+    p-values."""
+    n_pairs = p * (p - 1) // 2
     stats = np.empty(n_pairs)
     df_c = np.empty(n_pairs, dtype=np.int64)
     nobs_c = np.empty(n_pairs, dtype=np.int64)
     suff = np.empty(n_pairs, dtype=bool)
-    slab = _y_slabs(p, tile_sz, triangle=True)
-    for s in range(0, p, tile_sz):
-        t = min(tile_sz, p - s)
-        y_start, y_len = slab(s)
-        stat, df, n_obs, sp = block_fn(
-            state.dataT, state.marg, state.levels, state.max_vals, s, t, L,
-            y_start, y_len, nz, float(hps), float(n_obs_min))
+    for s, t, y_start, y_len in _sweep_blocks(p, tile_sz):
+        stat, df, n_obs, sp = block(s, t, y_start, y_len)
         _condense_block(
             s, t, p,
             [stat.cpu().numpy(), df.cpu().numpy(), n_obs.cpu().numpy(),
@@ -328,23 +364,15 @@ def _mi_pass(data, test_name, hps, n_obs_min, levels, max_vals, tile_sz,
     return stats, pvals, suff
 
 
-def _fz_nz_pass(data, n_obs_min, tile_sz, table, device, block_fn):
-    """(stats, pvals, suff) of the fz_nz pass: K2 blocks, condensed,
+def _fz_nz_pass(block, p, tile_sz, n_obs_min):
+    """(stats, pvals, suff) of the fz_nz host path: K2 blocks, condensed,
     n_obs_min forcing (reference src/tests.jl:121-125), float64 Fisher-z
     p-values."""
-    if block_fn is None:
-        block_fn = fz_nz_stats
-    p = data.shape[1]
     n_pairs = p * (p - 1) // 2
-    if table is None:
-        table = put_continuous(data, device)
     stats = np.empty(n_pairs)
     n_obs = np.empty(n_pairs, dtype=np.int64)
-    slab = _y_slabs(p, tile_sz, triangle=True)
-    for s in range(0, p, tile_sz):
-        t = min(tile_sz, p - s)
-        y_start, y_len = slab(s)
-        r, N = block_fn(table, s, t, y_start, y_len)
+    for s, t, y_start, y_len in _sweep_blocks(p, tile_sz):
+        r, N = block(s, t, y_start, y_len)
         _condense_block(s, t, p, [r.cpu().numpy(), N.cpu().numpy()],
                         [stats, n_obs], y_start=y_start)
     # n_obs < n_obs_min -> stat forced to 0 (reference src/tests.jl:121-125)
@@ -352,6 +380,204 @@ def _fz_nz_pass(data, n_obs_min, tile_sz, table, device, block_fn):
     suff = n_obs >= n_obs_min
     pvals = sf.fz_pval(stats, n_obs, 0)
     return stats, pvals, suff
+
+
+# ---------------------------------------------------------------------------
+# device extraction of the significant pairs (the default route)
+#
+# The host path above holds all p^2/2 pairs in float64 on the host (17 GB an
+# array at p = 65,536) and evaluates scipy p-values over them.  The
+# extraction keeps every block on the device: its float64 log p-values come
+# from the block's kernel outputs, and only the candidate pairs, those below
+# an edge that every BH-significant p-value lies under, are kept.  BH then
+# runs in log space over the candidates, sorted on the device, and only the
+# significant pairs cross to the host.
+#
+#   sweep 1: per block, the counts of log p below 48 geometric edges
+#            (e_0 = log alpha down to log(alpha / 4m)), the unreliable count,
+#            and the candidates below e_0 while their total stays within
+#            EXTRACT_BUDGET.  Every pair left out has p >= alpha, so BH over
+#            the candidates ranks them as over all pairs.
+#   sweep 2: only when sweep 1 ran past the budget: the BH-safe edge
+#            e_b (_select_bin: the smallest edge provably above every
+#            BH-significant p) from the counts, then the blocks again,
+#            keeping the candidates below e_b.  Past the budget at e_b the
+#            extraction refuses; it never returns a truncated set.
+#
+# (The JAX package's _extract_scan always runs both sweeps, with per-block
+# caps and chunk compaction that XLA's static shapes need; here a boolean
+# mask and torch.nonzero give exact sizes.)
+# ---------------------------------------------------------------------------
+
+N_EXTRACT_BINS = 48
+EXTRACT_BUDGET = 1 << 26  # candidates held on the device (24 B each)
+
+
+def _extract_edges(alpha: float, n_pairs: int) -> np.ndarray:
+    """Decreasing log p-value edges e_0 = log(alpha) .. log(alpha/(4m)).
+
+    Everything below the last edge is automatically BH-significant
+    (p < alpha/m implies p <= alpha*rank/m for any rank >= 1), so the edge
+    grid only needs to resolve the region where the BH cutoff can fall; the
+    geometric spacing bounds extraction overshoot to ~45% of the pair count
+    in the cutoff's own bin."""
+    la = math.log(alpha)
+    return np.linspace(la, la - math.log(4.0 * max(float(n_pairs), 2.0)),
+                       N_EXTRACT_BINS)
+
+
+def _select_bin(counts: np.ndarray, m: float, alpha: float,
+                edges: np.ndarray) -> int:
+    """Smallest bin index b such that the extraction edge e_b provably
+    exceeds every BH-significant p-value.
+
+    A significant p in bin b (edges[b+1] <= log p < edges[b]) satisfies
+    p <= alpha * rank(p) / m with rank(p) <= counts[b], so a bin with
+    edges[b+1] > log(alpha * counts[b] / m) cannot contain one; the first
+    bin violating that bound is the safe (and tight, to one bin) choice.
+    Falls through to the auto-significant last bin."""
+    la = math.log(alpha)
+    lm = math.log(max(m, 1.0))
+    for b in range(len(edges) - 1):
+        if counts[b] > 0 and edges[b + 1] <= la + math.log(counts[b]) - lm:
+            return b
+    return len(edges) - 1
+
+
+def _block_scores(kind, outs, s, y_start, reliable, n_obs_min=0.0,
+                  max_df=0):
+    """One block's kernel outputs reduced to extraction scores.
+
+    ``outs`` is (stat, df, n_obs, suff) for kind "mi" and (r, N) for
+    "fz_nz" (stat forced to 0 and the pair unreliable where N < n_obs_min).
+    Returns (logp, stat, n_unreliable): logp is the float64 log p-value,
+    +inf where the slot is no pair (X >= Y) and, for an unreliable pair,
+    +inf with ``reliable`` (correct_reliable_only) and 0 (p = 1) without.
+    A NaN log p-value (a zero-variance correlation) counts as unreliable, as
+    the host path drops NaN p-values from BH's m (the JAX package's
+    extraction does not: ROADMAP queue 3)."""
+    if kind == "mi":
+        stat, df, n_obs, suff = outs
+        logp = sf.mi_logpval_smalldf(stat, df, n_obs, max_df)
+    else:
+        r, N = outs
+        suff = N >= n_obs_min
+        stat = torch.where(suff, r, 0.0)
+        logp = sf.fz_logpval(stat, N, 0)
+    t, q = logp.shape
+    dev = logp.device
+    valid = (torch.arange(s, s + t, device=dev)[:, None]
+             < torch.arange(y_start, y_start + q, device=dev)[None, :])
+    unrel = valid & (~suff | torch.isnan(logp))
+    logp = torch.where(unrel, math.inf if reliable else 0.0, logp)
+    logp = torch.where(valid, logp, math.inf)
+    return logp, stat, unrel.sum()
+
+
+def _sweep(kind, block, blocks, thresh, reliable, n_obs_min, max_df,
+           edges=None):
+    """One pass over the blocks, keeping the candidates (logp < thresh)
+    while their total stays within EXTRACT_BUDGET.  With ``edges`` (numpy) it
+    also counts, in int64 on the device, the log p-values below each edge
+    and the unreliable pairs.
+
+    Returns (n_candidates, candidates, counts, n_unreliable); candidates
+    are (X int32, Y int32, logp, stat) on the device, or None past the
+    budget or when there are none.  Each block syncs with the host once, in torch.nonzero."""
+    kept, parts = 0, []
+    counts = unrel = 0
+    for s, t, y_start, y_len in blocks:
+        logp, stat, n_unrel = _block_scores(kind, block(s, t, y_start, y_len),
+                                            s, y_start, reliable, n_obs_min,
+                                            max_df)
+        idx = torch.nonzero(logp.view(-1) < thresh).squeeze(1)
+        lp = logp.view(-1)[idx]
+        if edges is not None:
+            e = torch.as_tensor(edges, dtype=torch.float64, device=lp.device)
+            counts = counts + (lp[:, None] < e[None, :]).sum(dim=0)
+            unrel = unrel + n_unrel
+        kept += idx.numel()
+        if parts is not None and kept > EXTRACT_BUDGET:
+            parts = None                  # past the budget: count only
+        if parts is not None:
+            parts.append((((idx // y_len) + s).to(torch.int32),
+                          ((idx % y_len) + y_start).to(torch.int32), lp,
+                          stat.reshape(-1)[idx]))
+        del logp, stat, lp, idx
+    if parts is not None:
+        parts = [torch.cat(c) for c in zip(*parts)] if parts else None
+    return kept, parts, counts, unrel
+
+
+def _extract(kind, block, p, tile_sz, alpha, FDR, reliable, n_obs_min=0.0,
+             max_df=0, info=None):
+    """Neighbor dicts of the BH-significant pairs, swept on the device.
+
+    Decisions are float64 on the device: log p-values, the candidate sort
+    and BH.  The n_sig significant rows cross to the host in one transfer.
+    ``info``, when given, receives the route ("one sweep" or "two sweeps"),
+    K (the candidates BH ran over) and n_sig."""
+    n_pairs = p * (p - 1) // 2
+    blocks = list(_sweep_blocks(p, tile_sz))
+    edges = _extract_edges(alpha, n_pairs)
+    la = math.log(alpha)
+    kept, cand, counts, unrel = _sweep(kind, block, blocks, la, reliable,
+                                       n_obs_min, max_df, edges=edges)
+    m = n_pairs - (int(unrel) if reliable else 0)
+    route = "one sweep"
+    if kept > EXTRACT_BUDGET:
+        counts = counts.cpu().numpy()
+        b_hat = _select_bin(counts, m, alpha, edges) if FDR else 0
+        K = int(counts[b_hat])
+        if K > EXTRACT_BUDGET:
+            raise RuntimeError(
+                f"{K} sub-threshold univariate pairs exceed the device "
+                f"extraction budget ({EXTRACT_BUDGET}); the network is "
+                "pathologically dense at this scale -- raise alpha and/or "
+                "keep FDR enabled to shrink the significant set (the host "
+                "path, return_result=True, holds O(p^2) float64)")
+        kept, cand, _, _ = _sweep(kind, block, blocks, float(edges[b_hat]),
+                                  reliable, n_obs_min, max_df)
+        if kept != K:
+            raise RuntimeError(
+                f"the second univariate sweep found {kept} candidates where "
+                f"the first counted {K}; refusing to return a different set")
+        route = "two sweeps"
+    n_sig = 0
+    nbr = {i: PSortedNbrs() for i in range(p)}
+    if kept:
+        X, Y, lp, stat = cand
+        slog, order = torch.sort(lp, stable=True)
+        if FDR:
+            ranks = torch.arange(1, kept + 1, dtype=torch.float64,
+                                 device=lp.device)
+            terms = torch.where(slog < la, slog + math.log(m) - torch.log(ranks),
+                                math.inf)
+            ladj = torch.flip(torch.cummin(torch.flip(terms, (0,)), 0).values,
+                              (0,))
+            ladj = torch.clamp(ladj, max=0.0)
+        else:
+            ladj = slog
+        # ladj is nondecreasing: the significant pairs are a prefix
+        n_sig = int((ladj < la).sum())
+        order = order[:n_sig]
+        rows = torch.stack([X[order].to(torch.float64),
+                            Y[order].to(torch.float64), ladj[:n_sig],
+                            stat[order]]).cpu().numpy()
+        Xs, Ys = rows[0].astype(np.int64), rows[1].astype(np.int64)
+        pvals, stats = np.exp(rows[2]), rows[3]
+        # BH plateaus give exact ties in the adjusted p; the host path's
+        # candidate order breaks them by condensed pair index (its dicts
+        # insert in condensed order, then stable-sort by p), so these dicts
+        # insert in that order too: HITON's candidate order depends on it
+        tie = np.lexsort((condensed_pos(Xs, Ys, p), pvals))
+        for x, y, st, pv in zip(Xs[tie], Ys[tie], stats[tie], pvals[tie]):
+            entry = (float(st), float(pv))
+            nbr[int(x)][int(y)] = entry
+            nbr[int(y)][int(x)] = entry
+    if info is not None:
+        info.update(route=route, K=kept, n_sig=n_sig)
+    return nbr
 
 
 def pw_univar_neighbors(
@@ -370,13 +596,19 @@ def pw_univar_neighbors(
     state=None,
     device="cuda",
     block_fn=None,
+    info: Optional[dict] = None,
 ):
     """All-pairs univariate pass (reference: src/tests.jl:436-532).
 
     Returns per-variable neighbor dicts {X: {Y: (stat, pval)}} (0-based) of
-    FDR-significant pairs; with return_result=True also the condensed
-    UnivarResult.  ``cor_mat`` belongs to fz and is accepted for the JAX
-    package's signature.
+    FDR-significant pairs, each a :class:`..types.PSortedNbrs` whose
+    insertion order is ascending p, from the device extraction
+    (:func:`_extract`) on every device.  ``return_result=True`` takes the
+    host path instead: the condensed all-pairs :class:`UnivarResult` and
+    its dicts (in condensed order), with scipy float64 p-values.
+    ``cor_mat`` belongs to fz and is accepted for the JAX package's
+    signature.  ``info`` (a dict) receives the extraction's route, K and
+    n_sig.
 
     ``state`` is the table already on the device (``LGL`` uploads it
     once for this pass and the conditioning engine): a
@@ -396,12 +628,20 @@ def pw_univar_neighbors(
     n_pairs = p * (p - 1) // 2
     tile_sz = _choose_tile(p, tile)
     if isdiscrete(test_name):
-        stats, pvals, suff = _mi_pass(data, test_name, hps, n_obs_min, levels,
-                                      max_vals, tile_sz, state, device,
-                                      block_fn)
+        block, tile_sz, max_df = _mi_blocks(data, test_name, hps, n_obs_min,
+                                            levels, max_vals, tile_sz, state,
+                                            device, block_fn)
+        if not return_result:
+            return _extract("mi", block, p, tile_sz, alpha, FDR,
+                            correct_reliable_only, max_df=max_df, info=info)
+        stats, pvals, suff = _mi_pass(block, p, tile_sz)
     elif test_name == "fz_nz":
-        stats, pvals, suff = _fz_nz_pass(data, n_obs_min, tile_sz, state,
-                                         device, block_fn)
+        block = _fz_nz_blocks(data, state, device, block_fn)
+        if not return_result:
+            return _extract("fz_nz", block, p, tile_sz, alpha, FDR,
+                            correct_reliable_only, n_obs_min=n_obs_min,
+                            info=info)
+        stats, pvals, suff = _fz_nz_pass(block, p, tile_sz, n_obs_min)
     elif test_name == "fz":
         raise NotImplementedError(
             "fz is not ported to PyTorch yet (ROADMAP queue 1 item 7)")
@@ -419,7 +659,4 @@ def pw_univar_neighbors(
         pvals = sf.benjamini_hochberg(pvals, alpha=alpha, m=m)
 
     result = UnivarResult(p, stats, pvals, suff)
-    nbrs = result.neighbor_dicts(alpha)
-    if return_result:
-        return nbrs, result
-    return nbrs
+    return result.neighbor_dicts(alpha), result

@@ -8,7 +8,8 @@ default; a discrete table has 3 levels unless ``levels`` says otherwise,
 e.g. ``profile_slice.py mi 2048 10000 12`` for phase 6) once to warm up, then once under ``torch.profiler`` and prints the
 stage seconds, the card's busy share (CUDA kernel and copy time over wall
 time) and the largest CUDA entries by device time; then profiles the host
-side of one univariate pass with cProfile and prints its largest entries.
+side of a third LGL run and of one univariate pass with cProfile and
+prints their largest entries.
 """
 
 from __future__ import annotations
@@ -63,15 +64,19 @@ def main() -> int:
         "top_device": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
                        for e in top]}), flush=True)
 
+    def host_profile(what, fn, *args, top=10, **kwargs):
+        prof_host = cProfile.Profile()
+        t0 = time.perf_counter()
+        prof_host.runcall(fn, *args, **kwargs)
+        print(f"{what} under cProfile: {time.perf_counter() - t0:.3f} s")
+        out = io.StringIO()
+        pstats.Stats(prof_host, stream=out).sort_stats("tottime").print_stats(top)
+        print(out.getvalue(), flush=True)
+
+    host_profile("LGL", LGL, data, top=15, **kw)
     st = from_numpy_continuous(data, dev) if fznz else from_numpy_state(data, None, None, dev)
-    prof_host = cProfile.Profile()
-    t0 = time.perf_counter()
-    prof_host.runcall(pw_univar_neighbors, data, test_name=test_name, alpha=0.01,
-                      hps=5, n_obs_min=20, state=st)
-    print(f"univariate pass under cProfile: {time.perf_counter() - t0:.3f} s")
-    out = io.StringIO()
-    pstats.Stats(prof_host, stream=out).sort_stats("tottime").print_stats(10)
-    print(out.getvalue())
+    host_profile("univariate pass", pw_univar_neighbors, data, test_name=test_name,
+                 alpha=0.01, hps=5, n_obs_min=20, state=st)
     return 0
 
 

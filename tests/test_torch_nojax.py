@@ -4,7 +4,7 @@ imports ``flashweave_tpu_torch``, normalizes a table, learns mi_nz and
 fz_nz networks on the CPU, saves and loads a network, and runs the
 univariate pass of a 10-level table through the default block function
 (K4's plain version) and the planes route (K3's, then
-``mi_planes_stats``)."""
+``mi_planes_stats``), both through the default device extraction."""
 
 import re
 import subprocess
@@ -55,6 +55,9 @@ ten = np.where(flip, rng.integers(0, 10, ten.shape), ten).astype(float)
 kw = dict(test_name="mi", n_obs_min=20, device="cpu")
 default = U.pw_univar_neighbors(ten, **kw)
 planes = U.pw_univar_neighbors(ten, block_fn=U.mi_planes_block, **kw)
+# the default route is the extraction: p-sorted dicts
+from flashweave_tpu_torch.types import PSortedNbrs
+assert all(isinstance(d, PSortedNbrs) for d in default.values())
 assert [list(default[v]) for v in default] == [list(planes[v]) for v in planes]
 assert sum(map(len, planes.values())) > 0
 res = fwt.learn_network(ten, sensitive=False, normalize=False, max_k=1,

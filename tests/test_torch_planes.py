@@ -261,9 +261,10 @@ def test_pw_univar_neighbors_10_levels_matches_jax(test_name):
     want, wres = jax_pw(data, return_result=True, **kw)
     got, gres = U.pw_univar_neighbors(data, return_result=True, device="cpu",
                                       **kw)
-    # the planes route gives the same decisions
-    planes = U.pw_univar_neighbors(data, device="cpu",
-                                   block_fn=U.mi_planes_block, **kw)
+    # the planes route gives the same decisions (on the host path, whose
+    # dicts keep the condensed order)
+    planes, _ = U.pw_univar_neighbors(data, device="cpu", return_result=True,
+                                      block_fn=U.mi_planes_block, **kw)
     assert sum(map(len, got.values())) > 200
     np.testing.assert_array_equal(gres.suff_power, wres.suff_power)
     for v in range(P):

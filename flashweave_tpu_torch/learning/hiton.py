@@ -3,7 +3,7 @@
 The JAX file imports jax through ``..ops.statfuns``.  In this copy the
 relative imports resolve inside ``flashweave_tpu_torch``, which imports
 no jax.  Beyond that only ``si_hiton_pc`` differs: it takes ``device`` and
-passes it to its univariate pass and its engine.
+passes it to its univariate pass, its engine and fz's correlation matrix.
 ``tests/test_torch_learning.py`` checks that nothing else does.
 
 Semi-interleaved HITON-PC per-variable neighborhood search.
@@ -1397,7 +1397,8 @@ def si_hiton_pc(T: int, data, test_name: str = "mi", device="cuda",
         levels = get_levels(data)
         max_vals = get_max_vals(data)
     elif test_name == "fz":
-        cor_mat = np.asarray(cor_matrix(data), dtype=np.float64)
+        cor_mat = np.asarray(cor_matrix(data, device=device).cpu(),
+                             dtype=np.float64)
     univar = pw_univar_neighbors(
         data, test_name=test_name, alpha=cfg.alpha, hps=cfg.hps,
         n_obs_min=cfg.n_obs_min, levels=levels, max_vals=max_vals,

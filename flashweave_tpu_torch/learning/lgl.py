@@ -1,4 +1,4 @@
-"""LGL: local-to-global learning (PyTorch port: mi, mi_nz, fz_nz).
+"""LGL: local-to-global learning (PyTorch port: mi, mi_nz, fz_nz, fz).
 
 PyTorch counterpart of ``flashweave_tpu/learning/lgl.py`` (reference:
 src/learning.jl:1-279): parameter resolution (auto time_limit / n_obs_min
@@ -10,7 +10,7 @@ and serves both the univariate kernel and the conditioning engine: int8
 (int16 when a value exceeds 127) with its levels, max_vals and level
 marginals for the discrete tests (levels are counted on the host by
 ``utils.misc.get_levels`` / ``get_max_vals``), one contiguous float64
-tensor for fz_nz.
+tensor for fz_nz and fz.
 
 Execution modes on one device:
 - parallel="single" / "single_il": one target at a time (exact sequential
@@ -147,11 +147,7 @@ def LGL(
     src/learning.jl:203-279) on ``device``.
 
     ``cache_pcor`` and ``dense_cor`` are accepted for API compatibility and
-    have no effect (they concern fz, see the JAX package's learn_network).
-    fz raises NotImplementedError (ROADMAP queue 1 item 7)."""
-    if test_name == "fz":
-        raise NotImplementedError(
-            "fz is not ported to PyTorch yet (ROADMAP queue 1 item 7)")
+    have no effect (see the port's learn_network)."""
     if tmp_folder:
         warnings.warn("tmp_folder currently not implemented")
     if edge_rule != "OR":
@@ -256,6 +252,7 @@ def _lgl_timed(
         )
         with timer.stage("conditional"):
             nbr_states = scheduler.run()
+        engine.release()
         nbr_dict = {T: st.state_results for T, st in nbr_states.items()}
         if time_limit != 0.0 or convergence_threshold != 0.0:
             for T, st in nbr_states.items():

@@ -131,18 +131,18 @@ def learn_network(
     ``device`` is where the learning runs: ``"cuda"`` (default) needs a CUDA
     device and raises RuntimeError without one; ``"cpu"`` runs the plain
     PyTorch versions of the kernels.  The port drives one device, so
-    ``parallel_mode="auto"`` resolves to ``"single_il"``.  Ported: mi and
-    mi_nz (``sensitive=False``) and fz_nz (``sensitive=True,
-    heterogeneous=True``); fz (``sensitive=True, heterogeneous=False``)
-    raises NotImplementedError.
+    ``parallel_mode="auto"`` resolves to ``"single_il"``.  Every mode is
+    ported: mi and mi_nz (``sensitive=False``), fz_nz (``sensitive=True,
+    heterogeneous=True``) and fz (``sensitive=True, heterogeneous=False``,
+    the default).
 
     Documented divergences (accepted for API compatibility, no effect on
-    results -- both toggles are performance knobs for the reference's
-    process-based runtime that have no TPU analogue):
+    results: all three are performance knobs of the reference's
+    process-based runtime, which the port does not have):
 
     - ``share_data``: the reference copies or shared-memory-maps the table
       into worker processes (src/learning.jl:553-560).  Here the table is
-      device-resident HBM shared by every kernel already; True and False are
+      one upload to the device that every kernel reads; True and False are
       identical.
     - ``cache_pcor``: the reference memoizes partial-correlation recursion
       nodes in a per-worker dict (src/statfuns.jl:23-75).  The batched
@@ -150,9 +150,11 @@ def learn_network(
       vectorized sweep, so there is nothing to cache.
     - ``dense_cor``: the reference's toggle between a precomputed dense
       correlation matrix and on-the-fly correlations (src/learning.jl:42-47).
-      With ``recursive_pcor`` the matrix is always DEVICE-resident in the
-      conditioning engine (f32 on TPU, no host p x p allocation), so the
-      flag has no effect.
+      fz's conditioning engine decides by size instead: the float64
+      correlation matrix stays on the device up to
+      ``ops.condtests.FZ_COR_BYTES`` (p <= 46,340), and past it each batch's
+      correlations are built from the centered table; no p x p matrix is
+      held on the host.  The flag has no effect.
     """
     # path-based entries
     if isinstance(data, (list, tuple)) and data and isinstance(data[0], str):

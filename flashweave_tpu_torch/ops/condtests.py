@@ -1,7 +1,7 @@
 """Batched conditional independence tests.
 
 PyTorch counterpart of ``flashweave_tpu/ops/condtests.py`` (reference:
-src/tests.jl:184-276) for mi, mi_nz and fz_nz.  The HITON search layer
+src/tests.jl:184-276) for mi, mi_nz, fz_nz and fz.  The HITON search layer
 (``learning/hiton.py``, ``learning/scheduler.py``) ships flat batches:
 
 - mi / mi_nz: (X, Y, Zs) descriptors become stratified contingency tables
@@ -11,7 +11,15 @@ src/tests.jl:184-276) for mi, mi_nz and fz_nz.  The HITON search layer
   become correlation submatrices over the rows where T and the candidate are
   both nonzero (:func:`_masked_cor_kernel`, reference src/statfuns.jl:138-155
   ``cor_subset!``); the pcor DP and Fisher-z p-values run on the host in
-  float64 (``statfuns.pcor_dp``).
+  float64 (``statfuns.pcor_dp``);
+- fz: (X, Y, Zs) tests become (max_k+2)^2 correlation submatrices, gathered
+  from the (p, p) matrix on the device (:func:`_fz_cond_kernel`), or, past
+  ``FZ_COR_BYTES``, built per batch from the centered table
+  (:func:`_fz_cond_onfly_kernel`); the scheduler's fast windows take
+  all-row correlations over variable lists instead
+  (``masked_cor_begin(plain=True)``).  The pcor DP runs on the host in
+  float64, as for fz_nz.  These are plain gathers and products, as the JAX
+  package computes them outside any Pallas kernel.
 
 p-values are finished on the host in float64.  ``mi_tests_begin`` and
 ``masked_cor_begin`` only enqueue device work and return; the ``*_finish``
@@ -20,8 +28,8 @@ of a round's targets in between, so host bookkeeping overlaps device time as
 it did under JAX's asynchronous dispatch.
 
 The scheduler takes its float64 host digest for every window:
-``dev_digest``, ``turbo_mxu`` and ``cont_dev`` are False.  fz raises
-``NotImplementedError`` (ROADMAP queue 1 item 7).
+``dev_digest``, ``turbo_mxu`` and ``cont_dev`` are False (the device window
+digest for fz_nz and fz past the wall is ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import torch
 
 from . import statfuns as sf
 from .contingency import cond_ctab_batch
+from .univariate import _fz_center, cor_matrix
 from ..types import TestResult
 
 # running count of conditional CI tests dispatched (bench/diagnostics)
@@ -48,6 +57,20 @@ MCOR_ROW_BUDGET = 1 << 26
 # (T, candidate) pairs per masked-correlation device call: keeps B*n*m
 # memory bounded
 MCOR_SEG = 256
+
+# fz conditioning: the largest (p, p) float64 correlation matrix the engine
+# keeps on the device, 8 p^2 bytes: p <= 46,340.  Past it each batch's
+# submatrices are built from the centered table (the JAX package's bound,
+# FZ_COR_MATERIALIZE_MAX = 52000, is its v5e's f32 HBM).  16 GiB of an 80 GB
+# card leaves room for the float64 table and its centered copy (1 GB each at
+# 2048 x 65,536), the univariate sweep's candidates (up to 1.6 GB) and the
+# engine's batches; p = 65,536 (34 GB) goes on the fly, as on the TPU.  A
+# byte count of its own, not the device's memory, so that the CPU and the
+# card take the same route for the same p.
+FZ_COR_BYTES = 16 << 30
+
+# test hook: take the on-the-fly route at any p
+FORCE_COR_ONFLY = False
 
 
 def _mi_cond_kernel(data, levels, maxv, X, Y, Zs, kvec, hps, max_k, L, S,
@@ -103,8 +126,9 @@ def _mi_cond_kernel(data, levels, maxv, X, Y, Zs, kvec, hps, max_k, L, S,
     return stat, df, n_obs, suff
 
 
-def _masked_cor_kernel(data, X, Y, var_idx, B, m):
-    """Correlation submatrices over the rows where X and Y are both nonzero.
+def _masked_cor_kernel(data, X, Y, var_idx, B, m, plain=False):
+    """Correlation submatrices over the rows where X and Y are both nonzero
+    (``plain``: over all rows, fz's fast windows past the p x p wall).
 
     data: (n, p) float table on the device; X, Y: (B,) and var_idx: (B, m)
     int64 column indices [X, Y, Z_total...] (padded entries repeat X).
@@ -121,9 +145,13 @@ def _masked_cor_kernel(data, X, Y, var_idx, B, m):
     G = torch.zeros((B, m, m), dtype=data.dtype, device=data.device)
     for r0 in range(0, n, chunk):
         rows = data[r0:r0 + chunk]
-        mask = ((rows[:, X] != 0) & (rows[:, Y] != 0)).to(data.dtype)
-        Vm = rows[:, flat].reshape(rows.shape[0], B, m) * mask[..., None]
-        n_obs += mask.sum(dim=0)
+        Vm = rows[:, flat].reshape(rows.shape[0], B, m)
+        if plain:
+            n_obs += rows.shape[0]
+        else:
+            mask = ((rows[:, X] != 0) & (rows[:, Y] != 0)).to(data.dtype)
+            Vm = Vm * mask[..., None]
+            n_obs += mask.sum(dim=0)
         S1 += Vm.sum(dim=0)
         G += torch.einsum("nbi,nbj->bij", Vm, Vm)
     safe_n = torch.where(n_obs > 0, n_obs, 1.0)
@@ -133,6 +161,42 @@ def _masked_cor_kernel(data, X, Y, var_idx, B, m):
     denom = d[:, :, None] * d[:, None, :]
     C = torch.where(denom > 0, cov / torch.where(denom > 0, denom, 1.0), 0.0)
     return torch.cat([C.reshape(B, m * m), n_obs[:, None]], dim=1)
+
+
+def _fz_index(X, Y, Zs, kvec, max_k):
+    """(B, max_k + 2) variable indices [X, Y, Z_1..Z_maxk] of B fz tests,
+    the Zs past each test's k padded with X."""
+    karr = torch.arange(max_k, device=X.device)
+    pad = torch.where(karr[None, :] < kvec[:, None], Zs, X[:, None])
+    return torch.cat([X[:, None], Y[:, None], pad], dim=1)
+
+
+def _fz_cond_kernel(C, X, Y, Zs, kvec, max_k):
+    """The (B, m, m) correlation submatrices of B fz tests (m = max_k + 2)
+    gathered from the (p, p) matrix C on the device; padded Zs repeat X."""
+    idx = _fz_index(X, Y, Zs, kvec, max_k)
+    return C[idx[:, :, None], idx[:, None, :]]
+
+
+def _fz_cond_onfly_kernel(xc, ssd, X, Y, Zs, kvec, max_k):
+    """:func:`_fz_cond_kernel`'s submatrices built from the centered table
+    (``ops.univariate._fz_center``) without the (p, p) matrix: a Gram of
+    each test's m columns over row chunks that keep the gathered
+    (rows, B, m) tensor within ``MCOR_ROW_BUDGET`` elements, divided by the
+    columns' ssd products, NaN where one is 0, clamped to [-1, 1]: per entry
+    ``ops.univariate.fz_block``'s arithmetic up to summation order."""
+    n = xc.shape[0]
+    idx = _fz_index(X, Y, Zs, kvec, max_k)
+    B, m = idx.shape
+    chunk = max(64, min(n, MCOR_ROW_BUDGET // max(B * m, 1)))
+    flat = idx.reshape(-1)
+    G = torch.zeros((B, m, m), dtype=xc.dtype, device=xc.device)
+    for r0 in range(0, n, chunk):
+        V = xc[r0:r0 + chunk][:, flat].reshape(-1, B, m)
+        G += torch.einsum("nbi,nbj->bij", V, V)
+    d = ssd[idx]
+    G /= d[:, :, None] * d[:, None, :]      # a zero ssd: 0/0 = NaN
+    return G.clamp_(-1.0, 1.0)
 
 
 def _bucket_m(m: int) -> int:
@@ -152,16 +216,18 @@ class CondTestEngine:
     ``state`` is the table already on the device (one upload serves the
     univariate pass and this engine): a
     :class:`flashweave_tpu_torch.state.DiscreteState` for mi / mi_nz, the
-    float64 tensor of :func:`..state.from_numpy_continuous` for fz_nz.
-    Without it ``data`` is uploaded to ``device``."""
+    float64 tensor of :func:`..state.from_numpy_continuous` for fz and
+    fz_nz.  Without it ``data`` is uploaded to ``device``.
+
+    fz with ``recursive_pcor``, max_k > 0 and no host ``cor_mat``
+    (``cor_device``): the (p, p) correlation matrix on the device
+    (``cor_j``), or past ``FZ_COR_BYTES`` (``cor_onfly``) the centered table
+    and its column norms (``xc``, ``ssd``).  :meth:`release` frees them."""
 
     def __init__(self, data: np.ndarray, test_name: str, max_k: int,
                  levels=None, max_vals=None, cor_mat=None, hps: int = 5,
                  n_obs_min: int = 0, recursive_pcor: bool = True,
                  state=None, device="cuda"):
-        if test_name == "fz":
-            raise NotImplementedError(
-                "fz is not ported to PyTorch yet (ROADMAP queue 1 item 7)")
         self.mesh = None
         self.test_name = test_name
         self.max_k = max_k
@@ -187,6 +253,14 @@ class CondTestEngine:
             self.data = state
             self.device = state.device
             self.levels = None
+            if not self.nz and recursive_pcor and max_k > 0 and cor_mat is None:
+                self.cor_onfly = (8 * self.p ** 2 > FZ_COR_BYTES
+                                  or FORCE_COR_ONFLY)
+                if self.cor_onfly:
+                    self.xc, self.ssd = _fz_center(state)
+                else:
+                    self.cor_j = cor_matrix(state)
+                self.cor_device = True
             return
         if state is None:
             from ..state import from_numpy_state
@@ -268,15 +342,12 @@ class CondTestEngine:
         """Enqueue the masked correlations of ``pairs`` (T, candidate) over
         their variable lists [T, candidate, Z_total...] on the device, in
         segments of ``MCOR_SEG`` pairs, and return the handles without
-        waiting.  ``plain`` (over all rows) serves fz, which is not ported."""
-        if plain:
-            raise NotImplementedError(
-                "fz is not ported to PyTorch yet (ROADMAP queue 1 item 7)")
+        waiting.  ``plain``: over all rows (fz)."""
         return [self._masked_cor_seg(pairs[s:s + MCOR_SEG],
-                                     var_lists[s:s + MCOR_SEG])
+                                     var_lists[s:s + MCOR_SEG], plain)
                 for s in range(0, len(pairs), MCOR_SEG)]
 
-    def _masked_cor_seg(self, pairs, var_lists):
+    def _masked_cor_seg(self, pairs, var_lists, plain=False):
         B = len(pairs)
         m = _bucket_m(max(len(v) for v in var_lists))
         X = np.zeros(B, np.int64)
@@ -287,7 +358,7 @@ class CondTestEngine:
             VI[i, : len(vl)] = vl
             VI[i, len(vl):] = x  # pad with X; padded entries are never read
         out = _masked_cor_kernel(self.data, self._upload(X), self._upload(Y),
-                                 self._upload(VI), B, m)
+                                 self._upload(VI), B, m, plain)
         return out, B, m
 
     def masked_cor_finish(self, handles):
@@ -325,6 +396,64 @@ class CondTestEngine:
         """Masked correlation matrices for (T, C) pairs over their variable
         subsets [T, C, Z_total...].  Returns list of (C_sub f64, n_obs)."""
         return self.masked_cor_finish(self.masked_cor_begin(pairs, var_lists))
+
+    # -- fz against the device correlation matrix ----------------------------
+
+    # fz tests a device call: bounds the on-the-fly route's gathered rows
+    # and the gathered submatrices (B * m^2 float64)
+    FZ_CHUNK = 1 << 16
+
+    def fz_tests_begin(self, X: np.ndarray, Y: np.ndarray, Zs: np.ndarray,
+                       kvec: np.ndarray):
+        """Enqueue B fz tests (Zs (B, max_k), padded) on the device, in
+        chunks of ``FZ_CHUNK``: each gathers (or, on the fly, builds) the
+        tests' correlation submatrices.  Returns a handle for
+        :meth:`fz_tests_finish` without waiting.  With fewer rows than
+        n_obs_min nothing is launched: every test is unreliable."""
+        global N_TESTS_DISPATCHED
+        B = len(X)
+        N_TESTS_DISPATCHED += B
+        if self.n < self.n_obs_min:
+            return B, None
+        CH = self.FZ_CHUNK
+        return B, [self._fz_chunk(X[s:s + CH], Y[s:s + CH], Zs[s:s + CH],
+                                  kvec[s:s + CH]) for s in range(0, B, CH)]
+
+    def _fz_chunk(self, X, Y, Zs, kvec):
+        args = (self._upload(X), self._upload(Y),
+                self._upload(Zs, (len(X), self.max_k)), self._upload(kvec),
+                self.max_k)
+        if self.cor_onfly:
+            out = _fz_cond_onfly_kernel(self.xc, self.ssd, *args)
+        else:
+            out = _fz_cond_kernel(self.cor_j, *args)
+        return out, np.asarray(kvec, np.int64)
+
+    def fz_tests_finish(self, handle):
+        """(stat, pval, df, suff) in host float64 for a
+        :meth:`fz_tests_begin` handle (reference: src/tests.jl:250-265: df
+        0, suff the run-level n_obs check).  The pcor DP runs here in
+        float64 with the reference's 1e-5 rounding (src/statfuns.jl:39,51);
+        one device-to-host copy a chunk."""
+        B, parts = handle
+        if parts is None:
+            return (np.zeros(B), np.ones(B), np.zeros(B, np.int64),
+                    np.zeros(B, bool))
+        stat = np.concatenate(
+            [sf.pcor_dp(out.cpu().numpy(), kvec, self.max_k, xp=np)
+             for out, kvec in parts] or [np.zeros(0)])
+        pval = np.asarray(sf.fz_pval(stat, self.n, 0))
+        return stat, pval, np.zeros(B, np.int64), np.ones(B, bool)
+
+    def fz_tests_raw(self, X, Y, Zs, kvec):
+        """Evaluate B fz tests; returns numpy (stat, pval, df, suff)."""
+        return self.fz_tests_finish(self.fz_tests_begin(X, Y, Zs, kvec))
+
+    def release(self):
+        """Drop the fz correlation state (the (p, p) matrix or the centered
+        table) so that its device memory is freed with the run, not when
+        the collector reaches the engine."""
+        self.cor_j = self.xc = self.ssd = None
 
     def fz_tests_from_cor_raw(self, C: np.ndarray, pos_X: np.ndarray,
                               pos_Y: np.ndarray, pos_Zs: np.ndarray,

@@ -16,7 +16,10 @@ the CPU:
   package's XLA route there) on an int16 table, with the tile cut so that
   one block's float64 tables stay under ~1 GB (:func:`_pair_table_tile`);
 - fz_nz: the masked Pearson r and the joint nonzero count N
-  (:func:`..ops.kernels.fz_nz_stats`, K2; plain version :func:`fz_nz_block`).
+  (:func:`..ops.kernels.fz_nz_stats`, K2; plain version :func:`fz_nz_block`);
+- fz: the Pearson r of the block from the centered table
+  (:func:`_fz_center`, :func:`fz_block`), one float64 ``torch.matmul`` a
+  block, as the JAX package computes it outside any Pallas kernel.
 
 By default the blocks never leave the device (:func:`_extract`): each
 block's float64 log p-values (``statfuns.mi_logpval_smalldf`` /
@@ -25,9 +28,8 @@ pairs below a BH-safe edge are kept, Benjamini-Hochberg runs in log space
 over them on the device, and only the significant pairs reach the host.
 ``return_result=True`` keeps the host path: every block condensed on the
 host into p^2/2 float64 vectors, scipy p-values and BH there (the
-reference keeps all statistics in Float64).
-
-fz raises ``NotImplementedError`` (ROADMAP queue 1 item 7).
+reference keeps all statistics in Float64).  fz also takes the host path
+over an explicit ``cor_mat`` (the JAX package's ``have_cor``).
 """
 
 from __future__ import annotations
@@ -170,10 +172,42 @@ def put_continuous(data, device="cuda") -> torch.Tensor:
     return from_numpy_continuous(data, device)
 
 
-def cor_matrix(data):
-    """The fz correlation matrix (JAX package: ``univariate.cor_matrix``)."""
-    raise NotImplementedError(
-        "fz is not ported to PyTorch yet (ROADMAP queue 1 item 7)")
+def _fz_center(data, device="cuda"):
+    """(xc, ssd) of the blocked fz sweep: the column-centered float64 table
+    and each column's sqrt(sum(xc^2)), on the table's device (a numpy table
+    is uploaded to ``device``)."""
+    x = (data.to(torch.float64) if isinstance(data, torch.Tensor)
+         else put_continuous(data, device))
+    xc = x - x.mean(dim=0, keepdim=True)
+    return xc, torch.sqrt((xc * xc).sum(dim=0))
+
+
+def fz_block(xc, ssd, start: int, tile: int, y_start: int = 0,
+             y_len: Optional[int] = None) -> torch.Tensor:
+    """Pearson r of an X-block against a Y-slab (default: all variables)
+    from :func:`_fz_center`'s output: one float64 ``torch.matmul``, divided
+    by ssd_X ssd_Y, NaN where that product is 0, clamped to [-1, 1].  A
+    zero ssd is an all-zero centered column, whose products are 0, so the
+    division itself gives 0/0 = NaN there; in place, the block and the
+    product of the ssd are the only (tile, y_len) tensors."""
+    if y_len is None:
+        y_len = xc.shape[1]
+    cov = torch.matmul(xc[:, start:start + tile].T,
+                       xc[:, y_start:y_start + y_len])
+    cov /= ssd[start:start + tile, None] * ssd[None, y_start:y_start + y_len]
+    return cov.clamp_(-1.0, 1.0)
+
+
+def cor_matrix(data, device="cuda") -> torch.Tensor:
+    """The (p, p) Pearson correlation matrix in float64 on the table's
+    device (a numpy table is uploaded to ``device``): :func:`fz_block` over
+    every pair, one ``torch.matmul`` of the centered table (reference:
+    Statistics.cor, src/learning.jl:44).  NaN where a column has zero
+    variance; clamped to [-1, 1] as Julia's ``clampcor`` does, so that a
+    copied column gives r = 1 and not 1 + eps (whose Fisher-z p-value would
+    be NaN)."""
+    xc, ssd = _fz_center(data, device)
+    return fz_block(xc, ssd, 0, xc.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -339,6 +373,17 @@ def _fz_nz_blocks(data, table, device, block_fn):
     return lambda s, t, y_start, y_len: block_fn(table, s, t, y_start, y_len)
 
 
+def _fz_blocks(data, table, device):
+    """The fz pass's block function bound to the centered table on the
+    device: block(s, t, y_start, y_len) gives (r, n), n the row count as a
+    0-dim tensor (every pair is tested over all rows)."""
+    xc, ssd = _fz_center(data if table is None else table, device)
+    n = torch.tensor(float(xc.shape[0]), dtype=torch.float64,
+                     device=xc.device)
+    return lambda s, t, y_start, y_len: (fz_block(xc, ssd, s, t, y_start,
+                                                  y_len), n)
+
+
 def _mi_pass(block, p, tile_sz):
     """(stats, pvals, suff) of the mi / mi_nz host path (reference:
     src/tests.jl:28-103): kernel blocks, condensed, float64 G-test
@@ -449,7 +494,9 @@ def _block_scores(kind, outs, s, y_start, reliable, n_obs_min=0.0,
     """One block's kernel outputs reduced to extraction scores.
 
     ``outs`` is (stat, df, n_obs, suff) for kind "mi" and (r, N) for
-    "fz_nz" (stat forced to 0 and the pair unreliable where N < n_obs_min).
+    "fz_nz" and "fz" (stat forced to 0 and the pair unreliable where
+    N < n_obs_min; for fz, N is the 0-dim row count, so that either every
+    pair is reliable or none is).
     Returns (logp, stat, n_unreliable): logp is the float64 log p-value,
     +inf where the slot is no pair (X >= Y) and, for an unreliable pair,
     +inf with ``reliable`` (correct_reliable_only) and 0 (p = 1) without.
@@ -459,7 +506,7 @@ def _block_scores(kind, outs, s, y_start, reliable, n_obs_min=0.0,
     if kind == "mi":
         stat, df, n_obs, suff = outs
         logp = sf.mi_logpval_smalldf(stat, df, n_obs, max_df)
-    else:
+    else:                                 # "fz_nz" and "fz"
         r, N = outs
         suff = N >= n_obs_min
         stat = torch.where(suff, r, 0.0)
@@ -606,16 +653,18 @@ def pw_univar_neighbors(
     (:func:`_extract`) on every device.  ``return_result=True`` takes the
     host path instead: the condensed all-pairs :class:`UnivarResult` and
     its dicts (in condensed order), with scipy float64 p-values.
-    ``cor_mat`` belongs to fz and is accepted for the JAX package's
-    signature.  ``info`` (a dict) receives the extraction's route, K and
-    n_sig.
+    ``info`` (a dict) receives the extraction's route, K and n_sig.
+    fz: a given ``cor_mat`` (the (p, p) correlation matrix as numpy) takes
+    the host path over it, which returns its dicts alone unless
+    ``return_result``; the host path without it builds
+    :func:`cor_matrix` on the device.
 
     ``state`` is the table already on the device (``LGL`` uploads it
     once for this pass and the conditioning engine): a
     :class:`flashweave_tpu_torch.state.DiscreteState` for mi / mi_nz, the
-    float64 tensor of :func:`..state.from_numpy_continuous` for fz_nz.
-    Without it the table is uploaded here.  ``block_fn`` replaces the block
-    function.  fz_nz: default :func:`..ops.kernels.fz_nz_stats` (K2), or its
+    float64 tensor of :func:`..state.from_numpy_continuous` for fz and
+    fz_nz.  Without it the table is uploaded here.  ``block_fn`` replaces
+    the block function.  fz_nz: default :func:`..ops.kernels.fz_nz_stats` (K2), or its
     plain ``fz_nz_stats_ref``.  mi / mi_nz: default :func:`mi_block_fn`
     (K1 for L <= 4, K4 for L = 5..127, plain past that); the choices are
     :func:`..ops.kernels.mi_univar_stats` (K1, L = 2..4),
@@ -643,8 +692,24 @@ def pw_univar_neighbors(
                             info=info)
         stats, pvals, suff = _fz_nz_pass(block, p, tile_sz, n_obs_min)
     elif test_name == "fz":
-        raise NotImplementedError(
-            "fz is not ported to PyTorch yet (ROADMAP queue 1 item 7)")
+        have_cor = cor_mat is not None and np.size(cor_mat) > 0
+        if not return_result and not have_cor:
+            # blocked correlation sweep: the p x p matrix never exists
+            return _extract("fz", _fz_blocks(data, state, device), p,
+                            tile_sz, alpha, FDR, correct_reliable_only,
+                            n_obs_min=n_obs_min, info=info)
+        if have_cor:
+            C = np.asarray(cor_mat, dtype=np.float64)[:p, :p]
+        else:
+            C = cor_matrix(data if state is None else state,
+                           device).cpu().numpy()
+        stats = C[np.triu_indices(p, 1)]
+        del C
+        n_obs = np.full(n_pairs, data.shape[0])
+        suff = n_obs >= n_obs_min
+        pvals = sf.fz_pval(stats, n_obs, 0)
+        stats = np.where(suff, stats, 0.0)
+        pvals = np.where(suff, pvals, 1.0)
     else:
         raise ValueError(f"{test_name} is not a valid test name")
 
@@ -659,4 +724,6 @@ def pw_univar_neighbors(
         pvals = sf.benjamini_hochberg(pvals, alpha=alpha, m=m)
 
     result = UnivarResult(p, stats, pvals, suff)
-    return result.neighbor_dicts(alpha), result
+    if return_result:
+        return result.neighbor_dicts(alpha), result
+    return result.neighbor_dicts(alpha)

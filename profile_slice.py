@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Where the time goes in a slice run of the PyTorch port on one CUDA card.
 
-    python3 profile_slice.py mi|mi_nz|fz_nz [n p [levels]]
+    python3 profile_slice.py mi|mi_nz|fz_nz|fz [n p [levels]]
 
 Runs the slice LGL of ``chip_smoke.py`` (max_k=3, multi_il, 2048 x 10,000 by
 default; a discrete table has 3 levels unless ``levels`` says otherwise,
-e.g. ``profile_slice.py mi 2048 10000 12`` for phase 6) once to warm up, then once under ``torch.profiler`` and prints the
-stage seconds, the card's busy share (CUDA kernel and copy time over wall
-time) and the largest CUDA entries by device time; then profiles the host
-side of a third LGL run and of one univariate pass with cProfile and
-prints their largest entries.
+e.g. ``profile_slice.py mi 2048 10000 12`` for phase 6; fz_nz and fz run on
+log1p of the table, as phases 5 and 9 do; p = 65,536 takes bench.py's scale
+table, grouped by 8 from seed 0, as phases 8 and 10 do, so that
+``profile_slice.py fz 2048 65536`` profiles phase 10) once to warm up, then
+once under ``torch.profiler`` and prints the stage seconds, the card's busy
+share (CUDA kernel and copy time over wall time) and the largest CUDA
+entries by device time; then profiles the host side of a third LGL run and
+of one univariate pass with cProfile and prints their largest entries.
 """
 
 from __future__ import annotations
@@ -39,8 +42,10 @@ def main() -> int:
     test_name = sys.argv[1]
     n, p = (int(a) for a in sys.argv[2:4]) if len(sys.argv) > 2 else (2048, 10_000)
     levels = int(sys.argv[4]) if len(sys.argv) > 4 else 3
-    fznz = test_name == "fz_nz"
-    data = fznz_table(n, p) if fznz else synth_table(n, p, 5, levels=levels)
+    continuous = test_name.startswith("fz")
+    group, seed = (8, 0) if p == 65_536 else (5, 1)
+    data = (fznz_table(n, p, group, seed) if continuous
+            else synth_table(n, p, group, seed=seed, levels=levels))
     dev = torch.device("cuda", 0)
     kw = dict(test_name=test_name, max_k=3, parallel="multi_il", time_limit=0.0,
               convergence_threshold=0.0, verbose=False, n_obs_min=20, device=dev)
@@ -74,7 +79,8 @@ def main() -> int:
         print(out.getvalue(), flush=True)
 
     host_profile("LGL", LGL, data, top=15, **kw)
-    st = from_numpy_continuous(data, dev) if fznz else from_numpy_state(data, None, None, dev)
+    st = (from_numpy_continuous(data, dev) if continuous
+          else from_numpy_state(data, None, None, dev))
     host_profile("univariate pass", pw_univar_neighbors, data, test_name=test_name,
                  alpha=0.01, hps=5, n_obs_min=20, state=st)
     return 0

@@ -127,18 +127,34 @@ def test_cond_ctab_batch_matches_jax(reduced, S):
         assert occ is None and wocc is None
 
 
-def test_engine_refuses_continuous_modes():
-    """fz is not ported; fz_nz builds a continuous engine that takes the
-    scheduler's float64 host digest."""
-    data = _table("mixed", 50, 8, seed=0)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tct.CondTestEngine(data, "fz", 3, device="cpu")
+def test_engine_flags_for_continuous_modes(monkeypatch):
+    """fz keeps its correlations on the device (``cor_device``): the (p, p)
+    matrix below ``FZ_COR_BYTES``, the centered table past it; fz_nz
+    neither.  Both take the scheduler's float64 host digest (``cont_dev``
+    off)."""
+    data = _cont_table(50, 8, seed=0)
     eng = tct.CondTestEngine(data, "fz_nz", 3, device="cpu")
     assert eng.nz and not eng.discrete and eng.data.dtype == torch.float64
     assert not (eng.cont_dev or eng.cor_device or eng.cor_onfly
                 or eng.dev_digest or eng.turbo_mxu)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        eng.masked_cor_begin([(0, 1)], [[0, 1]], plain=True)
+    fz = tct.CondTestEngine(data, "fz", 3, device="cpu")
+    assert fz.cor_device and not fz.cor_onfly and not fz.nz
+    assert not (fz.cont_dev or fz.dev_digest or fz.turbo_mxu)
+    assert fz.cor_j.shape == (8, 8) and fz.cor_j.dtype == torch.float64
+    # the wall: 8 p^2 bytes against FZ_COR_BYTES, whatever the device
+    assert 8 * 65_536 ** 2 > tct.FZ_COR_BYTES >= 8 * 10_000 ** 2
+    monkeypatch.setattr(tct, "FZ_COR_BYTES", 8 * 8 ** 2 - 1)
+    onf = tct.CondTestEngine(data, "fz", 3, device="cpu")
+    assert onf.cor_device and onf.cor_onfly and not onf.cont_dev
+    assert onf.xc.shape == (50, 8) and onf.ssd.shape == (8,)
+    onf.release()
+    assert onf.xc is None and onf.ssd is None and onf.cor_j is None
+    # no device correlations with a host matrix, without the recursion or
+    # at max_k 0
+    for kw in (dict(cor_mat=np.eye(8)), dict(recursive_pcor=False)):
+        assert not tct.CondTestEngine(data, "fz", 3, device="cpu",
+                                      **kw).cor_device
+    assert not tct.CondTestEngine(data, "fz", 0, device="cpu").cor_device
 
 
 def test_slice_mask_matches_jax():

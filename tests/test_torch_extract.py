@@ -227,11 +227,13 @@ def _case(name):
         return "mi", _grouped(800, 384, 10)
     rng = np.random.default_rng(8)
     data = _grouped(256, 384, 3)
+    if name == "fz":                  # every entry nonzero: all rows count
+        return "fz", np.log1p(data + rng.random(data.shape))
     return "fz_nz", np.where(data > 0, np.log1p(data + rng.random(data.shape)),
                              0.0)
 
 
-CASES = ["mi_L3", "mi_nz_nz1", "mi_nz_nz2", "mi_L10", "fz_nz"]
+CASES = ["mi_L3", "mi_nz_nz1", "mi_nz_nz2", "mi_L10", "fz_nz", "fz"]
 FLAGS = [(True, True), (True, False), (False, True), (False, False)]
 # the JAX package compiles its sweep for each Y-slab length and flag set,
 # 10-50 s a run at L = 10 (81 df branches), so L = 10 is held against it at
@@ -345,6 +347,28 @@ def test_extract_nan_correlations_match_host_paths(FDR, reliable):
     _assert_same_as_host(got, jax_host)
 
 
+@pytest.mark.parametrize("FDR,reliable", FLAGS)
+def test_extract_fz_zero_variance_matches_host_paths(FDR, reliable):
+    """fz with constant columns (NaN correlations): the extraction equals
+    the port's host path and the JAX package's, and the JAX package's
+    ``_extract_scan``, which counts a NaN log-p as unreliable for fz."""
+    data = _case("fz")[1]
+    data[:, 3::8] = 0.25
+    kw = dict(test_name="fz", alpha=0.05, FDR=FDR, n_obs_min=20,
+              correct_reliable_only=reliable)
+    got = U.pw_univar_neighbors(data, device="cpu", **kw)
+    host, res = U.pw_univar_neighbors(data, device="cpu", return_result=True,
+                                      **kw)
+    assert np.isnan(res.stats[res.suff_power]).sum() > 100
+    assert sum(map(len, got.values())) > 20
+    _assert_same_as_host(got, host)
+    _assert_same_as_host(got, juv.pw_univar_neighbors(data, **kw))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        want = juv.pw_univar_neighbors(data, mesh=get_mesh(1), **kw)
+    _assert_same_as_jax(got, want)
+
+
 def test_second_sweep_and_refusal(monkeypatch):
     """Past the budget at log(alpha) the extraction sweeps again at the
     BH-safe edge and returns the same dicts; past the budget at that edge
@@ -370,14 +394,16 @@ def test_second_sweep_and_refusal(monkeypatch):
         U.pw_univar_neighbors(data, device="cpu", FDR=False, **kw)
 
 
-@pytest.mark.parametrize("case", ["mi_nz_nz2", "fz_nz"])
+@pytest.mark.parametrize("case", ["mi_nz_nz2", "fz_nz", "fz"])
 def test_default_route_never_condenses(case, monkeypatch):
     test_name, data = _case(case)
 
     def refuse(*args, **kwargs):
-        raise AssertionError("a block was condensed on the host")
+        raise AssertionError("a block was condensed on the host or the "
+                             "p x p matrix built")
 
     monkeypatch.setattr(U, "_condense_block", refuse)
+    monkeypatch.setattr(U, "cor_matrix", refuse)       # fz's p x p matrix
     kw = dict(test_name=test_name, n_obs_min=20, tile=64)
     nbrs = U.pw_univar_neighbors(data, device="cpu", **kw)
     assert sum(map(len, nbrs.values())) > 0

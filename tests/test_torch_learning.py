@@ -114,9 +114,22 @@ def test_cuda_device_raises_without_cuda(table, monkeypatch):
         fwt.learn_network(table, sensitive=False, verbose=False)
 
 
-def test_continuous_modes_not_ported(table):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fwt.learn_network(table, sensitive=True, verbose=False, device="cpu")
+def test_default_mode_fz_equals_jax(table):
+    """``learn_network(x, sensitive=True)`` with every other argument at
+    its default is fz (FlashWeave-S, the API default), max_k 3, single_il:
+    the JAX package's network, weights within atol 2e-5 (the pcor DP's
+    grid)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        got = fwt.graph(fwt.learn_network(table, sensitive=True,
+                                          verbose=False, device="cpu"))
+        want = fw.graph(fw.learn_network(table, sensitive=True, verbose=False,
+                                         parallel_mode="single_il"))
+    ge, we = list(got.edges()), list(want.edges())
+    assert len(we) > 20
+    assert [(u, v) for u, v, _ in ge] == [(u, v) for u, v, _ in we]
+    np.testing.assert_allclose([w for *_, w in ge], [w for *_, w in we],
+                               rtol=0, atol=2e-5)
 
 
 # lines each copy may differ in: its header docstring and the scheduler's
@@ -144,6 +157,8 @@ _DEVICE_EDITS = [
      'test_name: str = "mi", **kwargs)'),
     ("cor_mat=cor_mat, device=device,", "cor_mat=cor_mat,"),
     ("n_obs_min=cfg.n_obs_min, device=device)", "n_obs_min=cfg.n_obs_min)"),
+    ("cor_matrix(data, device=device).cpu(),\n                             "
+     "dtype=np.float64)", "cor_matrix(data), dtype=np.float64)"),
 ]
 
 
@@ -156,12 +171,13 @@ def _undo_device_edits(src):
     return head + "\ndef si_hiton_pc(" + fn + sep + tail
 
 
-@pytest.mark.parametrize("test_name", ["mi_nz", "fz_nz"])
+@pytest.mark.parametrize("test_name", ["mi_nz", "fz_nz", "fz"])
 @pytest.mark.parametrize("T", [0, 13])
 def test_si_hiton_pc_on_cpu_equals_jax(table, test_name, T):
     """The one-variable search on the CPU: the same PC set as the JAX
     package's ``si_hiton_pc``, stats and p-values within this file's
-    tolerances (mi_nz rtol 1e-9; fz_nz atol 2e-5, the pcor DP's grid)."""
+    tolerances (mi_nz rtol 1e-9; fz_nz and fz atol 2e-5, the pcor DP's
+    grid)."""
     from flashweave_tpu.learning.hiton import si_hiton_pc as jax_si_hiton_pc
     from flashweave_tpu_torch.learning.hiton import si_hiton_pc
 

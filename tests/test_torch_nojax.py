@@ -1,7 +1,8 @@
 """The PyTorch port must run without jax and without the JAX package: a
 fresh interpreter that refuses to import jax, jaxlib or ``flashweave_tpu``
-imports ``flashweave_tpu_torch``, normalizes a table, learns mi_nz and
-fz_nz networks on the CPU, saves and loads a network, and runs the
+imports ``flashweave_tpu_torch``, normalizes a table, learns mi_nz,
+fz_nz and fz networks on the CPU (fz on both conditioning routes), saves
+and loads a network, and runs the
 univariate pass of a 10-level table through the default block function
 (K4's plain version) and the planes route (K3's, then
 ``mi_planes_stats``), both through the default device extraction."""
@@ -47,6 +48,17 @@ for sensitive in (False, True):
     back = fwt.load_network(path).graph
     assert sorted(back.edges()) == sorted(g.edges())
     print("NET", sensitive, g.n_edges())
+# fz, the default mode, on both of its conditioning routes
+from flashweave_tpu_torch.ops import condtests
+nets = []
+for onfly in (False, True):
+    condtests.FORCE_COR_ONFLY = onfly
+    res = fwt.learn_network(data, sensitive=True, max_k=3, n_obs_min=20,
+                            verbose=False, device="cpu")
+    nets.append(sorted(fwt.graph(res).edges()))
+condtests.FORCE_COR_ONFLY = False
+assert nets[0] and [e[:2] for e in nets[0]] == [e[:2] for e in nets[1]]
+print("NET fz", len(nets[0]))
 from flashweave_tpu_torch.ops import univariate as U
 base = rng.integers(0, 10, (800, 6))
 ten = np.repeat(base, 5, axis=1)
@@ -76,6 +88,7 @@ def test_port_runs_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NOJAX_OK" in proc.stdout
     assert "NET True" in proc.stdout and "NET False" in proc.stdout
+    assert "NET fz" in proc.stdout
     assert "PLANES" in proc.stdout
 
 

@@ -146,8 +146,11 @@ def learn_network(
       identical.
     - ``cache_pcor``: the reference memoizes partial-correlation recursion
       nodes in a per-worker dict (src/statfuns.jl:23-75).  The batched
-      pcor DP (ops/statfuns.pcor_dp) evaluates all nodes of a batch in one
-      vectorized sweep, so there is nothing to cache.
+      float64 pcor DP evaluates all nodes of a batch in one vectorized
+      sweep, so there is nothing to cache: on the device for fz_nz and for
+      fz past the wall on CUDA (``ops/statfuns.pcor_dp_tensor``, inside the
+      engine's window digest), on the host otherwise
+      (``ops/statfuns.pcor_dp``); the two agree bit for bit.
     - ``dense_cor``: the reference's toggle between a precomputed dense
       correlation matrix and on-the-fly correlations (src/learning.jl:42-47).
       fz's conditioning engine decides by size instead: the float64

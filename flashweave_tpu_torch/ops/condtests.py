@@ -10,16 +10,14 @@ src/tests.jl:184-276) for mi, mi_nz, fz_nz and fz.  The HITON search layer
 - fz_nz: (T, candidate) pairs with their variable lists [T, cand, Zs...]
   become correlation submatrices over the rows where T and the candidate are
   both nonzero (:func:`_masked_cor_kernel`, reference src/statfuns.jl:138-155
-  ``cor_subset!``); the pcor DP and Fisher-z p-values run on the host in
-  float64 (``statfuns.pcor_dp``);
+  ``cor_subset!``);
 - fz: (X, Y, Zs) tests become (max_k+2)^2 correlation submatrices, gathered
   from the (p, p) matrix on the device (:func:`_fz_cond_kernel`), or, past
   ``FZ_COR_BYTES``, built per batch from the centered table
   (:func:`_fz_cond_onfly_kernel`); the scheduler's fast windows take
   all-row correlations over variable lists instead
-  (``masked_cor_begin(plain=True)``).  The pcor DP runs on the host in
-  float64, as for fz_nz.  These are plain gathers and products, as the JAX
-  package computes them outside any Pallas kernel.
+  (``masked_cor_begin(plain=True)``).  These are plain gathers and products,
+  as the JAX package computes them outside any Pallas kernel.
 
 p-values are finished on the host in float64.  ``mi_tests_begin`` and
 ``masked_cor_begin`` only enqueue device work and return; the ``*_finish``
@@ -27,13 +25,20 @@ methods copy the results to the host.  The scheduler advances the other half
 of a round's targets in between, so host bookkeeping overlaps device time as
 it did under JAX's asynchronous dispatch.
 
-The scheduler takes its float64 host digest for every window:
-``dev_digest``, ``turbo_mxu`` and ``cont_dev`` are False (the device window
-digest for fz_nz and fz past the wall is ROADMAP queue 1 item 8).
+The continuous window digest (``cont_dev``: fz_nz, and fz's fast windows
+on the on-the-fly route) stays on the device by default on CUDA
+(:meth:`CondTestEngine.cont_tests_begin`, :func:`_cont_digest`): the
+candidates' correlations, the float64 pcor DP (``statfuns.pcor_dp_tensor``),
+the Fisher-z log-p and the per-candidate decisions, with one copy of (3, NC)
+numbers to the host a round.  On the CPU, and for fz's gather
+(``fz_tests_finish``), the pcor DP runs on the host in float64
+(``statfuns.pcor_dp``).  ``dev_digest`` and ``turbo_mxu`` (the mi / mi_nz
+device digests) are False: ROADMAP queue 1 item 4.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -71,6 +76,15 @@ FZ_COR_BYTES = 16 << 30
 
 # test hook: take the on-the-fly route at any p
 FORCE_COR_ONFLY = False
+
+# the continuous window digest (fz_nz, fz on the fly): bytes of one
+# chunk's per-test (B, max_k + 2, max_k + 2) float64 submatrices; the pcor
+# DP holds a few tensors of that size at once
+CONT_SUB_BYTES = 1 << 27
+
+# test hook: None puts the continuous window digest on the device where the
+# engine's device is CUDA; True or False forces it either way
+FORCE_CONT_DEV = None
 
 
 def _mi_cond_kernel(data, levels, maxv, X, Y, Zs, kvec, hps, max_k, L, S,
@@ -208,6 +222,52 @@ def _bucket_m(m: int) -> int:
     return ((m + 127) // 128) * 128
 
 
+def _cont_digest(C, nobs, counts, POS, KV, B, max_k, log_alpha, n_obs_min):
+    """Per-candidate (exit_e, wstat, wpval) of NC continuous windows, on the
+    device (the JAX package's ``_cont_digest_fn``).
+
+    C: (NC, mv, mv) float64 correlations over each candidate's variable list
+    [T, cand, Zs...], nobs: (NC,) their row counts, counts: (NC,) int64 tests
+    a candidate; POS: (B, max_k) positions of each test's Zs in the list,
+    KV: (B,) their sizes, B = counts.sum() given by the caller, so nothing
+    here waits for the device.  C is clipped to [-1, 1] as the JAX digest
+    does (the host digest, ``scheduler._finish_mcw``, does not clip: an
+    entry one ulp past 1 gives it a NaN p where this gives 0).  Each test's
+    (max_k + 2)^2 submatrix (rows [0, 1, POS + 2 for t < KV], 0 past KV) goes
+    through the float64 pcor DP and the Fisher-z log p (NaN -> 0).  A test
+    is significant at log p < log alpha with nobs >= n_obs_min.  exit_e is
+    a candidate's first non-significant local index or -1; wstat the stat
+    of the last significant test with the largest log p M; wpval exp(M), 0
+    without a significant test.  Returns (3, NC) float64."""
+    NC, dev = C.shape[0], C.device
+    C = C.clamp(-1.0, 1.0)
+    cand = torch.repeat_interleave(torch.arange(NC, device=dev), counts,
+                                   output_size=B)
+    offs = torch.cumsum(counts, 0) - counts
+    loc = torch.arange(B, device=dev) - offs[cand]
+    pos = torch.where(torch.arange(max_k, device=dev) < KV[:, None], POS + 2,
+                      0)
+    idx = torch.cat([torch.zeros_like(KV)[:, None],
+                     torch.ones_like(KV)[:, None], pos], dim=1)  # (B, m)
+    sub = C[cand[:, None, None], idx[:, :, None], idx[:, None, :]]
+    stat = sf.pcor_dp_tensor(sub, KV, max_k)
+    n_t = nobs[cand]
+    logp = sf.fz_logpval(stat, n_t, 0)
+    logp = torch.where(torch.isnan(logp), 0.0, logp)
+    sig = (logp < log_alpha) & (n_t >= n_obs_min)
+    # B exceeds every local index: "no test" in the exit reduction
+    exit_loc = torch.full((NC,), B, dtype=torch.int64, device=dev)
+    exit_loc.scatter_reduce_(0, cand, torch.where(sig, B, loc), "amin")
+    exit_e = torch.where(exit_loc == B, -1, exit_loc)
+    M = torch.full((NC,), -torch.inf, dtype=stat.dtype, device=dev)
+    M.scatter_reduce_(0, cand, torch.where(sig, logp, -torch.inf), "amax")
+    w = torch.full((NC,), -1, dtype=torch.int64, device=dev)
+    w.scatter_reduce_(0, cand, torch.where(sig & (logp == M[cand]), loc, -1),
+                      "amax")
+    wstat = stat[torch.clamp(offs + torch.clamp(w, min=0), max=B - 1)]
+    return torch.stack([exit_e.to(stat.dtype), wstat, torch.exp(M)])
+
+
 class CondTestEngine:
     """Holds the device-resident table and evaluates flat batches of
     conditional tests, returning reference-semantics results (host float64
@@ -222,7 +282,13 @@ class CondTestEngine:
     fz with ``recursive_pcor``, max_k > 0 and no host ``cor_mat``
     (``cor_device``): the (p, p) correlation matrix on the device
     (``cor_j``), or past ``FZ_COR_BYTES`` (``cor_onfly``) the centered table
-    and its column norms (``xc``, ``ssd``).  :meth:`release` frees them."""
+    and its column norms (``xc``, ``ssd``).  :meth:`release` frees them.
+
+    ``cont_dev`` (fz_nz, and fz on the fly, at max_k > 0): the scheduler
+    digests the continuous windows on the device through
+    :meth:`cont_tests_begin` / :meth:`cont_tests_finish`; on by default
+    where the device is CUDA, off on the CPU, ``FORCE_CONT_DEV`` forces
+    it.  A failure there raises: nothing falls back to the host digest."""
 
     def __init__(self, data: np.ndarray, test_name: str, max_k: int,
                  levels=None, max_vals=None, cor_mat=None, hps: int = 5,
@@ -239,7 +305,7 @@ class CondTestEngine:
         self.cor_mat = cor_mat
         self.data_np = np.asarray(data)
         self.n, self.p = self.data_np.shape
-        # the scheduler's float64 host digest serves every window
+        # the mi / mi_nz windows take the scheduler's float64 host digest
         self.dev_digest = False
         self.turbo_mxu = False
         self.cor_device = False
@@ -261,6 +327,12 @@ class CondTestEngine:
                 else:
                     self.cor_j = cor_matrix(state)
                 self.cor_device = True
+            # the continuous window digest on the device (fz_nz, fz past
+            # the wall): on CUDA unless FORCE_CONT_DEV says otherwise
+            if max_k > 0 and (self.nz or self.cor_onfly):
+                self.cont_dev = (self.device.type == "cuda"
+                                 if FORCE_CONT_DEV is None
+                                 else bool(FORCE_CONT_DEV))
             return
         if state is None:
             from ..state import from_numpy_state
@@ -396,6 +468,65 @@ class CondTestEngine:
         """Masked correlation matrices for (T, C) pairs over their variable
         subsets [T, C, Z_total...].  Returns list of (C_sub f64, n_obs)."""
         return self.masked_cor_finish(self.masked_cor_begin(pairs, var_lists))
+
+    def cont_tests_begin(self, var_lists, POS, KV, counts, alpha):
+        """Enqueue the device digest of NC continuous candidate windows and
+        return the handles without waiting.
+
+        var_lists: per candidate [T, cand, Zs...]; POS (B, max_k) and KV (B,)
+        the tests' positions into the Zs part and sizes, counts (NC,) the
+        tests a candidate.  The round's correlations go in the host route's
+        ``MCOR_SEG`` segments (``_masked_cor_seg``: masked for fz_nz, over
+        all rows for fz), so both digests see the same C bit for bit;
+        segments group into chunks whose per-test submatrices stay within
+        ``CONT_SUB_BYTES``, each digested by :func:`_cont_digest`.  The
+        work runs under the profiler range ``cont_digest``, which
+        ``profile_slice.py`` reads."""
+        global N_TESTS_DISPATCHED
+        N_TESTS_DISPATCHED += len(KV)
+        with torch.profiler.record_function("cont_digest"):
+            return self._cont_chunks(var_lists, POS, KV, counts, alpha)
+
+    def _cont_chunks(self, var_lists, POS, KV, counts, alpha):
+        NC = len(var_lists)
+        counts = np.asarray(counts, np.int64)
+        cend = np.zeros(NC + 1, np.int64)
+        np.cumsum(counts, out=cend[1:])
+        mv = _bucket_m(max(len(v) for v in var_lists))
+        counts_d = self._upload(counts)
+        POS_d = self._upload(POS)
+        KV_d = self._upload(KV)
+        cap = CONT_SUB_BYTES // (8 * (self.max_k + 2) ** 2)
+        log_alpha = math.log(alpha)
+        handles = []
+        c0 = 0
+        while c0 < NC:
+            c1 = min(NC, c0 + MCOR_SEG)
+            while c1 < NC and cend[min(NC, c1 + MCOR_SEG)] - cend[c0] <= cap:
+                c1 = min(NC, c1 + MCOR_SEG)
+            b0, b1 = int(cend[c0]), int(cend[c1])
+            C = torch.zeros((c1 - c0, mv, mv), dtype=self.data.dtype,
+                            device=self.device)
+            nobs = torch.empty(c1 - c0, dtype=self.data.dtype,
+                               device=self.device)
+            for s in range(c0, c1, MCOR_SEG):
+                vls = var_lists[s:min(c1, s + MCOR_SEG)]
+                out, B, m = self._masked_cor_seg(
+                    [(v[0], v[1]) for v in vls], vls, plain=not self.nz)
+                C[s - c0:s - c0 + B, :m, :m] = out[:, :m * m].reshape(B, m, m)
+                nobs[s - c0:s - c0 + B] = out[:, m * m]
+            handles.append(_cont_digest(
+                C, nobs, counts_d[c0:c1], POS_d[b0:b1], KV_d[b0:b1], b1 - b0,
+                self.max_k, log_alpha, float(self.n_obs_min)))
+            c0 = c1
+        return handles
+
+    def cont_tests_finish(self, handles):
+        """(exit_e int64, wstat float64, wpval float64) per candidate, flat
+        over the round, from the handles of :meth:`cont_tests_begin`: one
+        device-to-host copy."""
+        out = torch.cat(handles, dim=1).cpu().numpy()
+        return out[0].astype(np.int64), out[1], out[2]
 
     # -- fz against the device correlation matrix ----------------------------
 

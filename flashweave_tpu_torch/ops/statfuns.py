@@ -8,9 +8,10 @@ src/statfuns.jl).  Two halves:
   pcor DP, Benjamini-Hochberg), identical in formula and operation order to
   the JAX package's numpy branch, so p-values and FDR decisions agree bit
   for bit;
-- tensor functions (:func:`mi_stats`, :func:`sufficient_power`) that run on
-  whatever device their inputs live on, in the inputs' float dtype, and the
-  float64 log-space p-values of the univariate extraction
+- tensor functions (:func:`mi_stats`, :func:`sufficient_power`,
+  :func:`pcor_dp_tensor`) that run on whatever device their inputs live
+  on, in the inputs' float dtype, and the float64 log-space p-values of the
+  univariate extraction and the continuous window digest
   (:func:`log_erfc`, :func:`mi_logpval_smalldf`, :func:`fz_logpval`).
 """
 
@@ -68,6 +69,42 @@ def pcor_dp(C, kvec, max_k, xp=np):
         P = xp.where(P < -1.0, -1.0, P)
         P = xp.where(P >= 1.0, 1.0, P)
         C = xp.where((t < kvec)[..., None, None], P, C)
+    return C[..., 0, 1]
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """sqrt rounded to nearest, as numpy's.  CUDA's float64 sqrt is; on the
+    CPU ``torch.sqrt`` may go through a vector math library that is an ulp
+    off, so CPU tensors take numpy's root."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
+
+
+def pcor_dp_tensor(C: torch.Tensor, kvec: torch.Tensor,
+                   max_k: int) -> torch.Tensor:
+    """:func:`pcor_dp` on float64 tensors, on their device.
+
+    The same operations in the same order, each a separate eager kernel
+    that rounds its result, so every value equals numpy's bit for bit:
+    ``torch.round`` rounds half to even as ``np.round`` does, the clamps and
+    selects keep NaN as numpy's do, the square root is :func:`_sqrt_rn`, and
+    the 1e5 divisor is a tensor on the device, since CUDA divides by a host
+    scalar as a product with its reciprocal.  A fused form must not let the
+    compiler contract ``a - b * c`` into one rounding (an FMA)."""
+    e5 = torch.full((), 1e5, dtype=C.dtype, device=C.device)
+    for t in range(max_k):
+        z = t + 2
+        cz = C[..., :, z]                                  # (..., m)
+        num = C - cz[..., :, None] * cz[..., None, :]
+        num = torch.round(num * 1e5) / e5
+        dvec = _sqrt_rn(torch.clamp(1.0 - cz * cz, min=0.0))
+        den = dvec[..., :, None] * dvec[..., None, :]
+        P = torch.where(den == 0.0, 0.0,
+                        num / torch.where(den == 0.0, 1.0, den))
+        P = torch.where(P < -1.0, -1.0, P)
+        P = torch.where(P >= 1.0, 1.0, P)
+        C = torch.where((t < kvec)[..., None, None], P, C)
     return C[..., 0, 1]
 
 

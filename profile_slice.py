@@ -10,9 +10,11 @@ log1p of the table, as phases 5 and 9 do; p = 65,536 takes bench.py's scale
 table, grouped by 8 from seed 0, as phases 8 and 10 do, so that
 ``profile_slice.py fz 2048 65536`` profiles phase 10) once to warm up, then
 once under ``torch.profiler`` and prints the stage seconds, the card's busy
-share (CUDA kernel and copy time over wall time) and the largest CUDA
-entries by device time; then profiles the host side of a third LGL run and
-of one univariate pass with cProfile and prints their largest entries.
+share (CUDA kernel and copy time over wall time), the largest CUDA entries
+by device time and the device work of the continuous window digest (the
+profiler range ``cont_digest``: calls, device ms, launches, largest
+kernels); then profiles the host side of a third LGL run and of one
+univariate pass with cProfile and prints their largest entries.
 """
 
 from __future__ import annotations
@@ -25,6 +27,29 @@ import sys
 import time
 
 import torch
+
+
+def range_kernels(events, name, top=12):
+    """The device work under the profiler range ``name`` (the continuous
+    window digest's ``cont_digest``): its calls, device milliseconds and
+    launches, and the largest (kernel, launches, ms), found by walking each
+    range's CPU children to the kernels and copies they launched."""
+    by = {}
+
+    def walk(ev):
+        for k in ev.kernels:
+            c, t = by.get(k.name, (0, 0.0))
+            by[k.name] = (c + 1, t + k.duration / 1e3)
+        for child in ev.cpu_children:
+            walk(child)
+
+    calls = [ev for ev in events if ev.name == name and ev.device_type.name == "CPU"]
+    for ev in calls:
+        walk(ev)
+    rows = sorted(by.items(), key=lambda kv: -kv[1][1])
+    return {"calls": len(calls), "device_ms": sum(t for _, t in by.values()),
+            "launches": sum(c for c, _ in by.values()),
+            "by_kernel": [[k[:60], c, t] for k, (c, t) in rows[:top]]}
 
 
 def main() -> int:
@@ -57,9 +82,12 @@ def main() -> int:
         LGL(data, stage_timer=timer, **kw)
         wall = time.perf_counter() - t0
     # device-side entries only (kernels and copies): an aten:: op also
-    # carries the device time of the kernels it launched
+    # carries the device time of the kernels it launched, and a profiler
+    # range (the digest's cont_digest) spans the kernels inside it on the
+    # device's timeline
     cuda = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.is_user_annotation]
     busy = sum(e.self_device_time_total for e in cuda) / 1e6
     top = sorted(cuda, key=lambda e: -e.self_device_time_total)[:12]
     print(json.dumps({
@@ -67,7 +95,9 @@ def main() -> int:
         "stages": timer.stages, "device_busy_sec": busy,
         "device_busy_share": busy / wall,
         "top_device": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
-                       for e in top]}), flush=True)
+                       for e in top],
+        "cont_digest": range_kernels(prof.events(), "cont_digest")}),
+        flush=True)
 
     def host_profile(what, fn, *args, top=10, **kwargs):
         prof_host = cProfile.Profile()

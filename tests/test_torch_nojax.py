@@ -1,10 +1,10 @@
 """The PyTorch port must run without jax and without the JAX package: a
 fresh interpreter that refuses to import jax, jaxlib or ``flashweave_tpu``
 imports ``flashweave_tpu_torch``, normalizes a table, learns mi_nz,
-fz_nz and fz networks on the CPU (fz on both conditioning routes), saves
-and loads a network, and runs the
-univariate pass of a 10-level table through the default block function
-(K4's plain version) and the planes route (K3's, then
+fz_nz and fz networks on the CPU (fz_nz also through the device window
+digest, fz on both conditioning routes), saves and loads a network, and
+runs the univariate pass of a 10-level table through the default block
+function (K4's plain version) and the planes route (K3's, then
 ``mi_planes_stats``), both through the default device extraction."""
 
 import re
@@ -48,8 +48,16 @@ for sensitive in (False, True):
     back = fwt.load_network(path).graph
     assert sorted(back.edges()) == sorted(g.edges())
     print("NET", sensitive, g.n_edges())
-# fz, the default mode, on both of its conditioning routes
+# fz_nz through the continuous window digest on the device
 from flashweave_tpu_torch.ops import condtests
+condtests.FORCE_CONT_DEV = True
+res = fwt.learn_network(data, sensitive=True, heterogeneous=True, max_k=3,
+                        n_obs_min=20, verbose=False, device="cpu")
+condtests.FORCE_CONT_DEV = None
+assert [e[:2] for e in sorted(fwt.graph(res).edges())] == [
+    e[:2] for e in sorted(g.edges())]
+print("NET cont_dev", fwt.graph(res).n_edges())
+# fz, the default mode, on both of its conditioning routes
 nets = []
 for onfly in (False, True):
     condtests.FORCE_COR_ONFLY = onfly
@@ -89,6 +97,7 @@ def test_port_runs_with_jax_blocked():
     assert "NOJAX_OK" in proc.stdout
     assert "NET True" in proc.stdout and "NET False" in proc.stdout
     assert "NET fz" in proc.stdout
+    assert "NET cont_dev" in proc.stdout
     assert "PLANES" in proc.stdout
 
 

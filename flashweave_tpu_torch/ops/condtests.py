@@ -32,8 +32,27 @@ candidates' correlations, the float64 pcor DP (``statfuns.pcor_dp_tensor``),
 the Fisher-z log-p and the per-candidate decisions, with one copy of (3, NC)
 numbers to the host a round.  On the CPU, and for fz's gather
 (``fz_tests_finish``), the pcor DP runs on the host in float64
-(``statfuns.pcor_dp``).  ``dev_digest`` and ``turbo_mxu`` (the mi / mi_nz
-device digests) are False: ROADMAP queue 1 item 4.
+(``statfuns.pcor_dp``).
+
+The mi / mi_nz windows have two device digests where (L-1)^2 * S <= 128
+(3-level nz tables and 2-level tables at max_k = 3):
+
+- ``dev_digest`` (:meth:`CondTestEngine.mi_tests_begin_digest`,
+  :func:`_mi_digest`, the JAX package's ``_mi_cond_digest_scan_fn``): the
+  round's tests through :func:`_mi_cond_kernel`, then the float64 log-p and
+  the per-candidate decisions on the device; on by default on CUDA, off on
+  the CPU, where the scheduler digests the per-test results on the host
+  (``scheduler._scan_digest``);
+- ``turbo_mxu`` (:meth:`CondTestEngine.turbo_tests_begin`,
+  :func:`_turbo_pair_stats`, the JAX package's ``_turbo_digest_fn``): a
+  full-target window's (candidate, subset) joint tables from one batched
+  product of 0/1 level-indicator planes, the G-tests a pair, then each
+  slot's tests through :func:`_mi_digest`; on by default wherever its gate
+  holds.
+
+All three device digests reduce per candidate through
+:func:`_digest_reduce` and return (3, NC) numbers, copied to the host once
+a round.
 """
 
 from __future__ import annotations
@@ -85,6 +104,21 @@ CONT_SUB_BYTES = 1 << 27
 # test hook: None puts the continuous window digest on the device where the
 # engine's device is CUDA; True or False forces it either way
 FORCE_CONT_DEV = None
+
+# the mi / mi_nz digests' gate: (L-1)^2 * S histogram cells a test at most
+DIGEST_CELLS = 128
+
+# test hooks, where the digests' gates hold: None puts the mi / mi_nz
+# window digest on the device where the engine's device is CUDA, and the
+# turbo window digest on every device; True or False forces either way
+FORCE_DEV_DIGEST = None
+FORCE_TURBO_MXU = None
+
+# the turbo window digest: bytes of one chunk's (n, windows, U * S) float32
+# stratum planes (U subsets of S strata a window); the product's operands
+# and the bool and index temporaries that build them stay within a small
+# multiple of it
+TURBO_PLANE_BYTES = 1 << 30
 
 
 def _mi_cond_kernel(data, levels, maxv, X, Y, Zs, kvec, hps, max_k, L, S,
@@ -222,6 +256,42 @@ def _bucket_m(m: int) -> int:
     return ((m + 127) // 128) * 128
 
 
+def _segments(counts, B):
+    """(cand, offs, loc) of B tests in NC contiguous segments of ``counts``
+    tests: each test's segment, each segment's first test and each test's
+    index within its segment.  B is given by the caller, so nothing here
+    waits for the device."""
+    dev = counts.device
+    NC = counts.shape[0]
+    cand = torch.repeat_interleave(torch.arange(NC, device=dev), counts,
+                                   output_size=B)
+    offs = torch.cumsum(counts, 0) - counts
+    loc = torch.arange(B, device=dev) - offs[cand]
+    return cand, offs, loc
+
+
+def _digest_reduce(logp, stat, sig, cand, loc, offs, NC, B):
+    """The per-candidate reduction of the three window digests (continuous,
+    mi, turbo) over B tests in NC segments: exit_e, the first
+    non-significant local index or -1; w, the LAST local index attaining
+    M = the largest log p over the significant tests (the host digest's tie
+    break); wstat, stat at w; wpval = exp(M), 0 without a significant test.
+    ``cand`` / ``loc`` / ``offs`` as :func:`_segments` gives them.  Returns
+    (3, NC) in stat's dtype, without a host synchronisation."""
+    dev = stat.device
+    # B exceeds every local index: "no test" in the exit reduction
+    exit_loc = torch.full((NC,), B, dtype=torch.int64, device=dev)
+    exit_loc.scatter_reduce_(0, cand, torch.where(sig, B, loc), "amin")
+    exit_e = torch.where(exit_loc == B, -1, exit_loc)
+    M = torch.full((NC,), -torch.inf, dtype=stat.dtype, device=dev)
+    M.scatter_reduce_(0, cand, torch.where(sig, logp, -torch.inf), "amax")
+    w = torch.full((NC,), -1, dtype=torch.int64, device=dev)
+    w.scatter_reduce_(0, cand, torch.where(sig & (logp == M[cand]), loc, -1),
+                      "amax")
+    wstat = stat[torch.clamp(offs + torch.clamp(w, min=0), max=B - 1)]
+    return torch.stack([exit_e.to(stat.dtype), wstat, torch.exp(M)])
+
+
 def _cont_digest(C, nobs, counts, POS, KV, B, max_k, log_alpha, n_obs_min):
     """Per-candidate (exit_e, wstat, wpval) of NC continuous windows, on the
     device (the JAX package's ``_cont_digest_fn``).
@@ -241,10 +311,7 @@ def _cont_digest(C, nobs, counts, POS, KV, B, max_k, log_alpha, n_obs_min):
     without a significant test.  Returns (3, NC) float64."""
     NC, dev = C.shape[0], C.device
     C = C.clamp(-1.0, 1.0)
-    cand = torch.repeat_interleave(torch.arange(NC, device=dev), counts,
-                                   output_size=B)
-    offs = torch.cumsum(counts, 0) - counts
-    loc = torch.arange(B, device=dev) - offs[cand]
+    cand, offs, loc = _segments(counts, B)
     pos = torch.where(torch.arange(max_k, device=dev) < KV[:, None], POS + 2,
                       0)
     idx = torch.cat([torch.zeros_like(KV)[:, None],
@@ -255,17 +322,108 @@ def _cont_digest(C, nobs, counts, POS, KV, B, max_k, log_alpha, n_obs_min):
     logp = sf.fz_logpval(stat, n_t, 0)
     logp = torch.where(torch.isnan(logp), 0.0, logp)
     sig = (logp < log_alpha) & (n_t >= n_obs_min)
-    # B exceeds every local index: "no test" in the exit reduction
-    exit_loc = torch.full((NC,), B, dtype=torch.int64, device=dev)
-    exit_loc.scatter_reduce_(0, cand, torch.where(sig, B, loc), "amin")
-    exit_e = torch.where(exit_loc == B, -1, exit_loc)
-    M = torch.full((NC,), -torch.inf, dtype=stat.dtype, device=dev)
-    M.scatter_reduce_(0, cand, torch.where(sig, logp, -torch.inf), "amax")
-    w = torch.full((NC,), -1, dtype=torch.int64, device=dev)
-    w.scatter_reduce_(0, cand, torch.where(sig & (logp == M[cand]), loc, -1),
-                      "amax")
-    wstat = stat[torch.clamp(offs + torch.clamp(w, min=0), max=B - 1)]
-    return torch.stack([exit_e.to(stat.dtype), wstat, torch.exp(M)])
+    return _digest_reduce(logp, stat, sig, cand, loc, offs, NC, B)
+
+
+def _mi_digest(stat, df, n_obs, suff, counts, B, log_alpha, max_df):
+    """Per-candidate (exit_e, wstat, wpval) of B conditional MI tests in
+    NC = len(counts) contiguous candidate segments, on the device (the JAX
+    package's ``_mi_cond_digest_scan_fn`` after its scan): the float64
+    closed-form log p (``statfuns.mi_logpval_smalldf`` over df <= max_df),
+    0 where the power check fails, significant below log alpha, then
+    :func:`_digest_reduce`.  Returns (3, NC) float64."""
+    cand, offs, loc = _segments(counts, B)
+    logp = sf.mi_logpval_smalldf(stat, df, n_obs, max_df)
+    logp = torch.where(suff, logp, 0.0)
+    return _digest_reduce(logp, stat, logp < log_alpha, cand, loc, offs,
+                          counts.shape[0], B)
+
+
+def _turbo_pair_stats(data, levels, maxv, Tw, Cw, memb, klen, hps, L, S, nz,
+                      nzu):
+    """(stat, df, n_obs, suff) of every (candidate, subset) pair of Wc
+    full-target windows (target Tw (Wc,), m candidates Cw (Wc, m)), each
+    (Wc, m * U), on the device (the tables and G-tests of the JAX package's
+    ``_turbo_digest_fn``).
+
+    A (n, Wc, m * Lq): the (x, y) level-indicator planes of each
+    (target, candidate) pair, the nz row mask folded in (nz-uniform: levels
+    1..L-1 only, so the indicators are the mask); Bz (n, Wc, U * S): the
+    stratum indicators of the window's U subsets (``memb`` / ``klen``, radix
+    z-codes in base L).  One batched product A^T Bz gives every
+    (candidate, subset) joint table; 0/1 products summed in float32 are
+    exact below 2^24 rows (float64 past that).  The G-tests follow a pair
+    in float64, in the pair layout (Wc, m, a, b, U, S), with the same
+    reductions as ``_mi_cond_kernel``: signed MI, adjusted df and the power
+    check."""
+    n = data.shape[0]
+    Wc, m = Cw.shape
+    U, max_k = memb.shape
+    dev, f64 = data.device, torch.float64
+    mm = torch.float32 if n < (1 << 24) else f64
+    lv = torch.arange(1 if nzu else 0, L, device=dev)
+    Lr = lv.shape[0]
+    x = data[:, Tw].long()                                      # (n, Wc)
+    ys = data[:, Cw.reshape(-1)].long().reshape(n, Wc, m)
+    xo = x[..., None] == lv                                     # (n, Wc, Lr)
+    yo = ys[..., None] == lv                                    # (n, Wc, m, Lr)
+    A = xo[:, :, None, :, None] & yo[:, :, :, None, :]
+    if nz and not nzu:
+        # generic nz: binary variables keep their zeros (offset 0)
+        ox = maxv[Tw] > 1                                       # (Wc,)
+        oy = maxv[Cw] > 1                                       # (Wc, m)
+        mask = ((x != 0) | ~ox)[:, :, None] & ((ys != 0) | ~oy)
+        A = A & mask[..., None, None]
+    A = A.reshape(n, Wc, m * Lr * Lr).to(mm)
+    pw = L ** torch.arange(max_k, device=dev)
+    wz = torch.where(torch.arange(max_k, device=dev) < klen[:, None], pw, 0)
+    zc = (ys[:, :, memb.reshape(-1)].reshape(n, Wc, U, max_k) * wz).sum(-1)
+    Bz = (zc[..., None] == torch.arange(S, device=dev)).reshape(n, Wc, U * S)
+    P = torch.bmm(A.permute(1, 2, 0), Bz.to(mm).permute(1, 0, 2))
+    P6 = P.reshape(Wc, m, Lr, Lr, U, S).to(f64)
+    marg_i = P6.sum(dim=3)                                      # (Wc,m,a,U,S)
+    marg_j = P6.sum(dim=2)                                      # (Wc,m,b,U,S)
+    marg_k = marg_i.sum(dim=2)                                  # (Wc,m,U,S)
+    n_obs = marg_k.sum(dim=-1)                                  # (Wc,m,U)
+    mi_, mj = marg_i[:, :, :, None], marg_j[:, :, None]
+    valid = (P6 != 0) & (mi_ != 0) & (mj != 0)
+    denom = torch.where(valid, mi_ * mj, 1.0)
+    term = torch.where(
+        valid, torch.log((marg_k[:, :, None, None] * P6) / denom) * P6, 0.0)
+    av = torch.arange(Lr, device=dev)
+    if nz and not nzu:
+        oxb = ox.long()[:, None, None, None, None, None]
+        oyb = oy.long()[:, :, None, None, None, None]
+        diag = ((av[None, None, :, None, None, None] - oxb)
+                == (av[None, None, None, :, None, None] - oyb))
+    else:
+        diag = (av[:, None] == av[None, :])[None, None, :, :, None, None]
+    mi_pos = torch.where(diag, term, 0.0).sum(dim=(2, 3, 5))
+    mi_neg = torch.where(diag, 0.0, term).sum(dim=(2, 3, 5))
+    n_pos = torch.where(diag, P6, 0.0).sum(dim=(2, 3, 5))
+    n_neg = n_obs - n_pos                                       # (Wc,m,U)
+    safe_n = torch.where(n_obs > 0, n_obs, 1.0)
+    stat = (mi_pos + mi_neg) / safe_n
+    flip = mi_neg * (n_neg / safe_n) > mi_pos * (n_pos / safe_n)
+    stat = torch.where(flip, -stat, stat)
+    alx = torch.clamp((marg_i != 0).sum(dim=2), min=1)         # (Wc,m,U,S)
+    aly = torch.clamp((marg_j != 0).sum(dim=2), min=1)
+    df = ((alx - 1) * (aly - 1)).sum(dim=-1)
+    levels_z = (marg_k > 0).sum(dim=-1).to(f64)                 # (Wc,m,U)
+    if nzu:
+        lx = ly = float(L - 1)
+    elif nz:
+        lx = (L - ox.long())[:, None, None].to(f64)
+        ly = (L - oy.long())[:, :, None].to(f64)
+    else:
+        lx = levels[Tw][:, None, None].to(f64)
+        ly = levels[Cw][:, :, None].to(f64)
+    cells = lx * ly * levels_z
+    suff = torch.where(cells > 0,
+                       n_obs / torch.where(cells > 0, cells, 1.0) > hps, True)
+    stat = torch.where(suff, stat, 0.0)
+    df = torch.where(suff, df, 0)
+    return tuple(t.reshape(Wc, m * U) for t in (stat, df, n_obs, suff))
 
 
 class CondTestEngine:
@@ -288,7 +446,18 @@ class CondTestEngine:
     digests the continuous windows on the device through
     :meth:`cont_tests_begin` / :meth:`cont_tests_finish`; on by default
     where the device is CUDA, off on the CPU, ``FORCE_CONT_DEV`` forces
-    it.  A failure there raises: nothing falls back to the host digest."""
+    it.
+
+    mi / mi_nz at max_k > 0 where (L-1)^2 * S_hist <= ``DIGEST_CELLS``
+    (3-level nz tables, 2-level tables at max_k 3): ``dev_digest``, the
+    scheduler's windows digested on the device through
+    :meth:`mi_tests_begin_digest` / :meth:`mi_tests_finish_digest`, on by
+    default on CUDA, off on the CPU (``FORCE_DEV_DIGEST``); ``turbo_mxu``
+    where besides no strata are compacted (S_hist == S), the full-target
+    windows through :meth:`turbo_tests_begin` / :meth:`turbo_tests_finish`,
+    on by default on every device (``FORCE_TURBO_MXU``), as the JAX package
+    runs it under float64.  A failure in any device digest raises: nothing falls back to
+    the host digest."""
 
     def __init__(self, data: np.ndarray, test_name: str, max_k: int,
                  levels=None, max_vals=None, cor_mat=None, hps: int = 5,
@@ -305,7 +474,6 @@ class CondTestEngine:
         self.cor_mat = cor_mat
         self.data_np = np.asarray(data)
         self.n, self.p = self.data_np.shape
-        # the mi / mi_nz windows take the scheduler's float64 host digest
         self.dev_digest = False
         self.turbo_mxu = False
         self.cor_device = False
@@ -349,6 +517,16 @@ class CondTestEngine:
         cap = self.n if hps <= 0 else min(self.n, int(self.n // hps) + 1)
         self.S_hist = min(self.S, max(int(cap), 1))
         self.nzu = bool(self.nz and self.L == 3 and (self.max_vals > 1).all())
+        # the mi / mi_nz device digests, where a test's histogram is small
+        small = max_k > 0 and (self.L - 1) ** 2 * self.S_hist <= DIGEST_CELLS
+        if small:
+            self.dev_digest = (self.device.type == "cuda"
+                               if FORCE_DEV_DIGEST is None
+                               else bool(FORCE_DEV_DIGEST))
+        if small and self.S == self.S_hist:
+            self.turbo_mxu = (True if FORCE_TURBO_MXU is None
+                              else bool(FORCE_TURBO_MXU))
+        self._turbo_dev_cache = {}
 
     def _upload(self, a, shape=None):
         t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64))
@@ -356,27 +534,33 @@ class CondTestEngine:
             t = t.reshape(shape)
         return t.to(self.device, non_blocking=True)
 
+    def _mi_chunks(self, X, Y, Zs, kvec):
+        """(stat, df, n_obs, suff) of B conditional MI tests on the device,
+        a tuple for each chunk of tests whose (n, B) gathers stay within
+        ``CHUNK_ELEMS``."""
+        B = len(X)
+        chunk = max(1, CHUNK_ELEMS // max(self.n, 1))
+        st = self.state
+        parts = []
+        for s0 in range(0, B, chunk):
+            s1 = min(B, s0 + chunk)
+            parts.append(_mi_cond_kernel(
+                st.data, st.levels, st.max_vals, self._upload(X[s0:s1]),
+                self._upload(Y[s0:s1]),
+                self._upload(Zs[s0:s1], (s1 - s0, self.max_k)),
+                self._upload(kvec[s0:s1]), float(self.hps), self.max_k,
+                self.L, self.S_hist, self.nz, self.nzu))
+        return parts
+
     def mi_tests_begin(self, X: np.ndarray, Y: np.ndarray, Zs: np.ndarray,
                        kvec: np.ndarray):
         """Enqueue B conditional MI tests on the device and return a handle
         for :meth:`mi_tests_finish` without waiting for them."""
         global N_TESTS_DISPATCHED
-        B = len(X)
-        N_TESTS_DISPATCHED += B
-        chunk = max(1, CHUNK_ELEMS // max(self.n, 1))
-        st = self.state
-        handle = []
-        for s0 in range(0, B, chunk):
-            s1 = min(B, s0 + chunk)
-            stat, df, n_obs, suff = _mi_cond_kernel(
-                st.data, st.levels, st.max_vals, self._upload(X[s0:s1]),
-                self._upload(Y[s0:s1]),
-                self._upload(Zs[s0:s1], (s1 - s0, self.max_k)),
-                self._upload(kvec[s0:s1]), float(self.hps), self.max_k,
-                self.L, self.S_hist, self.nz, self.nzu)
-            handle.append(torch.stack(
-                [stat, df.to(torch.float64), n_obs, suff.to(torch.float64)]))
-        return handle
+        N_TESTS_DISPATCHED += len(X)
+        return [torch.stack([stat, df.to(torch.float64), n_obs,
+                             suff.to(torch.float64)])
+                for stat, df, n_obs, suff in self._mi_chunks(X, Y, Zs, kvec)]
 
     def mi_tests_finish_lazy(self, handle):
         """Wait for a mi_tests_begin handle WITHOUT computing p-values;
@@ -392,6 +576,78 @@ class CondTestEngine:
         stat, df, n_obs, suff = self.mi_tests_finish_lazy(handle)
         pval = np.where(suff, sf.mi_pval(stat, df, n_obs), 1.0)
         return stat, pval, df, suff
+
+    def mi_tests_begin_digest(self, X, Y, Zs, kvec, counts, alpha):
+        """Enqueue B conditional MI tests and their per-candidate digest on
+        the device (counts: the tests of each candidate, in contiguous
+        segments of the batch) and return a handle for
+        :meth:`mi_tests_finish_digest` without waiting.  The tests go in
+        :meth:`mi_tests_begin`'s chunks; :func:`_mi_digest` reduces the
+        whole round.  The work runs under the profiler range ``mi_digest``,
+        which ``profile_slice.py`` reads."""
+        global N_TESTS_DISPATCHED
+        B = len(X)
+        N_TESTS_DISPATCHED += B
+        with torch.profiler.record_function("mi_digest"):
+            parts = self._mi_chunks(X, Y, Zs, kvec)
+            stat, df, n_obs, suff = (torch.cat(t) for t in zip(*parts))
+            return _mi_digest(stat, df, n_obs, suff, self._upload(counts), B,
+                              math.log(alpha),
+                              (self.L - 1) ** 2 * self.S_hist)
+
+    def mi_tests_finish_digest(self, handle):
+        """(exit_e int64, wstat float64, wpval float64) per candidate, flat
+        over the round, from a :meth:`mi_tests_begin_digest` handle: one
+        device-to-host copy."""
+        out = handle.cpu().numpy()
+        return out[0].astype(np.int64), out[1], out[2]
+
+    def turbo_tests_begin(self, m: int, Ts: np.ndarray, cands: np.ndarray,
+                          alpha: float, tpl: dict):
+        """Enqueue W full-target windows (targets Ts (W,), candidates
+        cands (W, m)) and their per-slot digests on the device, and return
+        a handle for :meth:`turbo_tests_finish` without waiting.  ``tpl`` is
+        ``hiton._turbo_mxu_template(m, max_k)``: the window's subset family
+        and each test's (candidate, subset) pair, held on the device once
+        for each m.  The pairs' G-tests come from
+        :func:`_turbo_pair_stats` in chunks of windows whose stratum planes
+        stay within ``TURBO_PLANE_BYTES``; each template test takes its
+        pair's through ``jb * U + ub``, and :func:`_mi_digest` digests the
+        (window, slot) segments of all W windows at once.  The work runs
+        under the profiler range ``turbo_digest``, which
+        ``profile_slice.py`` reads."""
+        global N_TESTS_DISPATCHED
+        W, B, NC = len(Ts), tpl["B"], tpl["NC"]
+        N_TESTS_DISPATCHED += W * B
+        with torch.profiler.record_function("turbo_digest"):
+            const = self._turbo_dev_cache.get(m)
+            if const is None:
+                const = (self._upload(tpl["memb"]), self._upload(tpl["klen"]),
+                         self._upload(tpl["jb"].astype(np.int64) * tpl["U"]
+                                      + tpl["ub"]),
+                         self._upload(tpl["counts"]))
+                self._turbo_dev_cache[m] = const
+            memb, klen, pairid, counts = const
+            Wc = max(1, TURBO_PLANE_BYTES // (4 * self.n * tpl["U"] * self.S))
+            Ts_d = self._upload(Ts)
+            C_d = self._upload(cands, (W, m))
+            st = self.state
+            parts = [_turbo_pair_stats(
+                st.data, st.levels, st.max_vals, Ts_d[s:s + Wc],
+                C_d[s:s + Wc], memb, klen, float(self.hps), self.L, self.S,
+                self.nz, self.nzu) for s in range(0, W, Wc)]
+            stat, df, n_obs, suff = (torch.cat(t)[:, pairid].reshape(-1)
+                                     for t in zip(*parts))
+            return _mi_digest(stat, df, n_obs, suff, counts.repeat(W), W * B,
+                              math.log(alpha),
+                              (self.L - 1) ** 2 * self.S_hist).reshape(3, W, NC)
+
+    def turbo_tests_finish(self, handle):
+        """(exit_e (W, NC) int64, wstat (W, NC), wpval (W, NC)) from a
+        :meth:`turbo_tests_begin` handle, the layout of a window's
+        per-candidate digest: one device-to-host copy."""
+        out = handle.cpu().numpy()
+        return out[0].astype(np.int64), out[1], out[2]
 
     def mi_tests_raw(self, X: np.ndarray, Y: np.ndarray, Zs: np.ndarray,
                      kvec: np.ndarray):

@@ -291,7 +291,7 @@ def log_erfc(z: torch.Tensor) -> torch.Tensor:
 
 def _logsumexp2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     m = torch.maximum(a, b)
-    m = torch.where(torch.isfinite(m), m, 0.0)  # both -inf
+    m = torch.nan_to_num(m, nan=0.0, posinf=0.0, neginf=0.0)  # both -inf
     return m + torch.log(torch.exp(a - m) + torch.exp(b - m))
 
 
@@ -306,26 +306,43 @@ def mi_logpval_smalldf(mi: torch.Tensor, df: torch.Tensor, n_obs: torch.Tensor,
       df = 2k+1 : Q = erfc(sqrt(x)) + e^{-x} sum_{1<=i<=k} x^{i-1/2} / G(i+1/2)
     Each branch's logsumexp chain is a prefix of the next one's, built in
     the JAX package's order of accumulation (its ``mi_logpval_smalldf``),
-    so the value for each df does not depend on ``max_df``."""
+    so the value for each df does not depend on ``max_df``.  The even and
+    odd chains advance together as one (2, ...) tensor, and each element
+    keeps the chain value of its own df, finished once after the loop:
+    about 15 launches a k, where a where over the whole batch for every df
+    took 42, with the same operations on each element."""
     x = torch.abs(mi) * n_obs.to(mi.dtype)               # g/2
     logx = torch.log(torch.clamp(x, min=1e-300))
     ler = log_erfc(torch.sqrt(x))
-    out = torch.zeros_like(x)                            # df <= 0 -> log 1
-    acc_e = torch.zeros_like(x)                          # i = 0 term
-    acc_o = None
-    for d in range(1, max_df + 1):
-        k = d // 2
-        if d % 2 == 0:
-            logq = -x + acc_e if k > 1 else -x
-            # extend the chain for the next even branch (the i = k term)
-            acc_e = _logsumexp2(acc_e, k * logx - math.lgamma(k + 1))
-        elif k == 0:
-            logq = ler
+    negx = -x
+    K = max_df // 2
+    # step k extends the even chain by its term i = k and the odd chain by
+    # its term i = k - 1/2: coefficients of log x and lgamma offsets
+    ks = np.arange(1, K + 1, dtype=np.float64)
+    coef = torch.from_numpy(np.stack([ks, ks - 0.5], axis=1)).to(x.device)
+    lg = torch.from_numpy(np.array(
+        [[math.lgamma(k + 1), math.lgamma(k + 0.5)] for k in range(1, K + 1)],
+        np.float64).reshape(K, 2)).to(x.device)
+    shape = (2,) + (1,) * x.dim()
+    sel_e = torch.zeros_like(x)        # even chain before step k, df = 2k
+    sel_o = torch.zeros_like(x)        # odd chain after step k, df = 2k + 1
+    acc = None
+    for k in range(1, K + 1):
+        if k > 1:
+            sel_e = torch.where(df == 2 * k, acc[0], sel_e)
+        t = logx * coef[k - 1].reshape(shape) - lg[k - 1].reshape(shape)
+        if acc is None:
+            # i = 0 term of the even chain; the odd chain starts at i = 1/2
+            acc = torch.stack([_logsumexp2(torch.zeros_like(x), t[0]), t[1]])
         else:
-            t = (k - 0.5) * logx - math.lgamma(k + 0.5)
-            acc_o = t if acc_o is None else _logsumexp2(acc_o, t)
-            logq = _logsumexp2(ler, -x + acc_o)
-        out = torch.where(df == d, logq, out)
+            acc = _logsumexp2(acc, t)
+        if 2 * k + 1 <= max_df:
+            sel_o = torch.where(df == 2 * k + 1, acc[1], sel_o)
+    even = torch.where(df == 2, negx, negx + sel_e)
+    odd = _logsumexp2(ler, negx + sel_o)
+    out = torch.where((df >= 2) & (df % 2 == 0), even, odd)
+    out = torch.where(df == 1, ler, out)
+    out = torch.where((df >= 1) & (df <= max_df), out, 0.0)  # df <= 0: log 1
     return torch.clamp(out, max=0.0)
 
 

@@ -11,9 +11,12 @@ table, grouped by 8 from seed 0, as phases 8 and 10 do, so that
 ``profile_slice.py fz 2048 65536`` profiles phase 10) once to warm up, then
 once under ``torch.profiler`` and prints the stage seconds, the card's busy
 share (CUDA kernel and copy time over wall time), the largest CUDA entries
-by device time and the device work of the continuous window digest (the
-profiler range ``cont_digest``: calls, device ms, launches, largest
-kernels); then profiles the host side of a third LGL run and of one
+by device time, the device work of each window digest (the profiler ranges
+``cont_digest``, ``mi_digest`` and ``turbo_digest``: calls, device ms,
+launches, largest kernels) and the search layer's window counts
+(``hiton.WINDOW_STATS``: speculative windows by kind; turbo windows tried,
+on the turbo digest, held in full, lost to an interleaving rejection or an
+elimination); then profiles the host side of a third LGL run and of one
 univariate pass with cProfile and prints their largest entries.
 """
 
@@ -29,9 +32,12 @@ import time
 import torch
 
 
+DIGESTS = ("cont_digest", "mi_digest", "turbo_digest")
+
+
 def range_kernels(events, name, top=12):
-    """The device work under the profiler range ``name`` (the continuous
-    window digest's ``cont_digest``): its calls, device milliseconds and
+    """The device work under the profiler range ``name`` (a window digest's,
+    ``DIGESTS``): its calls, device milliseconds and
     launches, and the largest (kernel, launches, ms), found by walking each
     range's CPU children to the kernels and copies they launched."""
     by = {}
@@ -59,6 +65,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import card_line, fznz_table, synth_table
+    from flashweave_tpu_torch.learning import hiton
     from flashweave_tpu_torch.learning.lgl import LGL
     from flashweave_tpu_torch.ops.univariate import pw_univar_neighbors
     from flashweave_tpu_torch.state import from_numpy_continuous, from_numpy_state
@@ -77,10 +84,12 @@ def main() -> int:
     print(card_line(), flush=True)
     LGL(data, **kw)                                   # warm-up
     timer = StageTimer(dev)
+    hiton.WINDOW_STATS = windows = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         LGL(data, stage_timer=timer, **kw)
         wall = time.perf_counter() - t0
+    hiton.WINDOW_STATS = None
     # device-side entries only (kernels and copies): an aten:: op also
     # carries the device time of the kernels it launched, and a profiler
     # range (the digest's cont_digest) spans the kernels inside it on the
@@ -96,7 +105,8 @@ def main() -> int:
         "device_busy_share": busy / wall,
         "top_device": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
                        for e in top],
-        "cont_digest": range_kernels(prof.events(), "cont_digest")}),
+        "windows": windows,
+        **{name: range_kernels(prof.events(), name) for name in DIGESTS}}),
         flush=True)
 
     def host_profile(what, fn, *args, top=10, **kwargs):

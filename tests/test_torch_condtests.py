@@ -75,7 +75,8 @@ def test_engine_matches_jax(test_name, kind, n, p):
         assert teng.S_hist < teng.S
     if kind == "uniform":
         assert teng.nzu
-    assert not teng.dev_digest and not teng.turbo_mxu and teng.mesh is None
+    assert (not teng.dev_digest and teng.turbo_mxu == jeng.turbo_mxu
+            and teng.mesh is None)
     X, Y, Zs, kvec = _batch(p, 300, max_k, seed=n)
     want = jeng.mi_tests_raw(X, Y, Zs, kvec)
     got = teng.mi_tests_raw(X, Y, Zs, kvec)

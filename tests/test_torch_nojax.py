@@ -1,8 +1,9 @@
 """The PyTorch port must run without jax and without the JAX package: a
 fresh interpreter that refuses to import jax, jaxlib or ``flashweave_tpu``
 imports ``flashweave_tpu_torch``, normalizes a table, learns mi_nz,
-fz_nz and fz networks on the CPU (fz_nz also through the device window
-digest, fz on both conditioning routes), saves and loads a network, and
+fz_nz and fz networks on the CPU (mi_nz also through the device window
+digest, fz_nz also through the continuous one, fz on both conditioning
+routes), saves and loads a network, and
 runs the univariate pass of a 10-level table through the default block
 function (K4's plain version) and the planes route (K3's, then
 ``mi_planes_stats``), both through the default device extraction."""
@@ -37,6 +38,7 @@ flip = rng.random(data.shape) < 0.3
 data = np.where(flip, rng.integers(0, 3, data.shape), data).astype(float)
 norm = fwt.normalize_data(data, test_name="fz_nz", verbose=False)
 assert norm.data.shape == data.shape
+nets = {}
 for sensitive in (False, True):
     res = fwt.learn_network(data, sensitive=sensitive, heterogeneous=True,
                             max_k=3, n_obs_min=20, verbose=False,
@@ -48,8 +50,17 @@ for sensitive in (False, True):
     back = fwt.load_network(path).graph
     assert sorted(back.edges()) == sorted(g.edges())
     print("NET", sensitive, g.n_edges())
-# fz_nz through the continuous window digest on the device
+    nets[sensitive] = sorted(g.edges())
 from flashweave_tpu_torch.ops import condtests
+# mi_nz through the window digest on the device
+condtests.FORCE_DEV_DIGEST = True
+res = fwt.learn_network(data, sensitive=False, heterogeneous=True, max_k=3,
+                        n_obs_min=20, verbose=False, device="cpu")
+condtests.FORCE_DEV_DIGEST = None
+assert [e[:2] for e in sorted(fwt.graph(res).edges())] == [
+    e[:2] for e in nets[False]]
+print("NET dev_digest", fwt.graph(res).n_edges())
+# fz_nz through the continuous window digest on the device
 condtests.FORCE_CONT_DEV = True
 res = fwt.learn_network(data, sensitive=True, heterogeneous=True, max_k=3,
                         n_obs_min=20, verbose=False, device="cpu")
@@ -98,6 +109,7 @@ def test_port_runs_with_jax_blocked():
     assert "NET True" in proc.stdout and "NET False" in proc.stdout
     assert "NET fz" in proc.stdout
     assert "NET cont_dev" in proc.stdout
+    assert "NET dev_digest" in proc.stdout
     assert "PLANES" in proc.stdout
 
 

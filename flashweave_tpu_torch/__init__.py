@@ -8,9 +8,9 @@ result types are the port's own copies of the JAX package's host modules.
 The learning runs on a ``device`` (default ``"cuda"``) with hand-written
 CUDA kernels for the hot loops and plain PyTorch elsewhere.
 
-Ported so far, on one device: the discrete modes mi and mi_nz
-(``sensitive=False``) and fz_nz (``sensitive=True, heterogeneous=True``).
-See ROADMAP.md for what remains.
+All four modes are ported: mi and mi_nz (``sensitive=False``), fz_nz
+(``sensitive=True, heterogeneous=True``) and fz (``sensitive=True``), on
+one device or sharded over a device mesh (``parallel``).
 """
 
 from .types import (

@@ -65,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 constexpr int WARPS = 16;
@@ -319,9 +321,9 @@ extern "C" {
 // r (tile, y_len) float64 and N (tile, y_len) int32, row-major.
 int fw_fz_nz_stats(const void* data, int n, int p, int x_start, int tile,
                    int y_start, int y_len, void* r, void* nobs, void* stream) {
-  static cudaError_t attr = cudaFuncSetAttribute(
-      fz_nz_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+  static bool raised[fw_smem::kMaxDevices] = {};
+  const cudaError_t attr =
+      fw_smem::raise_limit_once(fz_nz_stats_kernel, SMEM_BYTES, raised);
   if (attr != cudaSuccess) return (int)attr;
   const int blocks = ((tile + BX - 1) / BX) * ((y_len + BY - 1) / BY);
   fz_nz_stats_kernel<<<blocks, THREADS, SMEM_BYTES,

@@ -31,6 +31,7 @@
 #include <stdint.h>
 
 #include "int8_indicator_pipe.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -107,9 +108,9 @@ int fw_mi_pair_ctabs(const void* dataT, int n, int p, int x_start, int tile,
   if (L < 2 || L > 127 || n <= 0 || n >= (1 << 24) ||
       (reinterpret_cast<uintptr_t>(dataT) & 15))
     return (int)cudaErrorInvalidValue;
-  static cudaError_t attr = cudaFuncSetAttribute(
-      mi_pair_ctabs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+  static bool raised[fw_smem::kMaxDevices] = {};
+  const cudaError_t attr =
+      fw_smem::raise_limit_once(mi_pair_ctabs_kernel, SMEM_BYTES, raised);
   if (attr != cudaSuccess) return (int)attr;
   const int blocks = ((tile + fw_pipe::BX - 1) / fw_pipe::BX) *
                      ((y_len + fw_pipe::BY - 1) / fw_pipe::BY);

@@ -51,6 +51,7 @@
 #include <stdint.h>
 
 #include "int8_indicator_pipe.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -275,9 +276,9 @@ mi_univar_stats_kernel(const Block B) {
 template <int L>
 cudaError_t launch(const Block& B, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<L>();
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      mi_univar_stats_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+  static bool raised[fw_smem::kMaxDevices] = {};
+  const cudaError_t attr =
+      fw_smem::raise_limit_once(mi_univar_stats_kernel<L>, bytes, raised);
   if (attr != cudaSuccess) return attr;
   const int blocks = ((B.tile + BX - 1) / BX) * ((B.y_len + BY - 1) / BY);
   mi_univar_stats_kernel<L><<<blocks, THREADS, bytes, stream>>>(B);

@@ -12,14 +12,17 @@ marginals for the discrete tests (levels are counted on the host by
 ``utils.misc.get_levels`` / ``get_max_vals``), one contiguous float64
 tensor for fz_nz and fz.
 
-Execution modes on one device:
+Execution modes:
 - parallel="single" / "single_il": one target at a time (exact sequential
   reference semantics, still device-batched per conditioning chunk);
 - parallel="multi_ep": many targets advance per round, without
   feed-forward or convergence;
 - parallel="multi_il": round-based batched scheduler with feed-forward and
   convergence (learning/scheduler.py).
-Sharding over several devices is ROADMAP queue 1 item 9.
+With a device mesh (``mesh=``, ``parallel.mesh``) the univariate pass and
+the conditioning engine shard their work over it; multi_il and multi_ep on
+CUDA build one over the largest power of two of the visible cards when
+more than one is visible (the JAX package's lgl.py:238-247).
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ import warnings
 from typing import Dict, Optional
 
 import numpy as np
+
+import torch
 
 from ..device import resolve_device
 from ..ops import univariate as uv
@@ -141,10 +146,13 @@ def LGL(
     stage_timer=None,
     profile_dir: str = "",
     device="cuda",
+    mesh=None,
     **kwargs,
 ) -> LGLResult:
     """Learn a network via local-to-global HITON-PC (reference:
-    src/learning.jl:203-279) on ``device``.
+    src/learning.jl:203-279) on ``device``, or sharded over ``mesh`` (a
+    :class:`..parallel.mesh.Mesh`, whose primary device then replaces
+    ``device``).
 
     ``cache_pcor`` and ``dense_cor`` are accepted for API compatibility and
     have no effect (see the port's learn_network)."""
@@ -156,6 +164,15 @@ def LGL(
     if parallel not in VALID_PARALLEL:
         raise ValueError(f"'{parallel}' not a valid parallel mode")
     dev = resolve_device(device)
+    # multi-card: shard over a mesh (a power-of-two shard count, as the JAX
+    # package keeps its batch buckets evenly divisible)
+    if (mesh is None and parallel in ("multi_il", "multi_ep")
+            and dev.type == "cuda" and torch.cuda.device_count() > 1):
+        from ..parallel.mesh import get_mesh
+
+        mesh = get_mesh(1 << (torch.cuda.device_count().bit_length() - 1))
+    if mesh is not None:
+        dev = mesh.primary
 
     from ..utils.timing import StageTimer, profiler_trace
 
@@ -168,7 +185,7 @@ def LGL(
             weight_type, edge_merge_fun, debug, time_limit, header,
             recursive_pcor, correct_reliable_only, feed_forward,
             track_rejections, all_univar_nbrs, tile, update_interval,
-            verbose, timer, dev, kwargs,
+            verbose, timer, dev, mesh, kwargs,
         )
     if verbose and own_timer:
         print(timer.summary())
@@ -180,7 +197,7 @@ def _lgl_timed(
     convergence_threshold, FDR, parallel, fast_elim, no_red_tests,
     weight_type, edge_merge_fun, debug, time_limit, header, recursive_pcor,
     correct_reliable_only, feed_forward, track_rejections, all_univar_nbrs,
-    tile, update_interval, verbose, timer, dev, kwargs,
+    tile, update_interval, verbose, timer, dev, mesh, kwargs,
 ) -> LGLResult:
     data = np.asarray(data)
     n, p = data.shape
@@ -205,7 +222,7 @@ def _lgl_timed(
                 n_obs_min=n_obs_min, FDR=FDR, levels=levels,
                 max_vals=max_vals,
                 correct_reliable_only=correct_reliable_only,
-                tile=tile, state=state,
+                tile=tile, state=state, mesh=mesh,
             )
         if verbose:
             nbr_nums = [len(v) for v in all_univar_nbrs.values()]
@@ -231,7 +248,7 @@ def _lgl_timed(
         with timer.stage("engine_init"):
             engine = CondTestEngine(
                 data, test_name, max_k, hps=hps, n_obs_min=n_obs_min,
-                recursive_pcor=recursive_pcor, state=state,
+                recursive_pcor=recursive_pcor, state=state, mesh=mesh,
             )
         cfg = HitonConfig(
             test_name=test_name, max_k=max_k, alpha=alpha, hps=hps,

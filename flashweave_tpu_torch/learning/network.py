@@ -209,8 +209,11 @@ def learn_network(
 
     if parallel_mode == "auto":
         # reference: multi_il iff worker processes exist (src/learning.jl:486);
-        # the port drives one device
-        parallel_mode = "single_il"
+        # here: iff the device is CUDA and more than one card is visible
+        import torch
+
+        parallel_mode = ("multi_il" if dev.type == "cuda"
+                         and torch.cuda.device_count() > 1 else "single_il")
     elif parallel_mode not in VALID_PARALLEL_MODES:
         raise ValueError(
             f'"{parallel_mode}" not a valid parallelization mode, choose one '

@@ -3,8 +3,9 @@
 The JAX file imports jax directly (its line 262) and through
 ``..ops.statfuns``.  In this copy the relative imports resolve inside
 ``flashweave_tpu_torch``, which imports no jax, and the multi-process
-clock probe is single-process.  Nothing else differs;
-``tests/test_torch_learning.py`` checks that.
+clock probe asks ``parallel.distributed`` for the process count and rank
+in place of ``jax.process_count()`` / ``jax.process_index()``.  Nothing
+else differs; ``tests/test_torch_learning.py`` checks that.
 
 Round-based batched scheduler for the HITON searches.
 
@@ -267,9 +268,12 @@ class RoundScheduler:
         # must be identical on every process or the shard_map request
         # streams fork and the collectives desync -- rank 0's wall clock is
         # broadcast once per round and governs every clock read
-        # single process: the port drives one device (multi-device is
-        # ROADMAP queue 1 item 9)
-        self._multiproc = False
+        from ..parallel.distributed import process_count, process_index
+
+        self._multiproc = (engine.mesh is not None
+                           and process_count() > 1)
+        if self._multiproc and process_index() != 0:
+            self.verbose = False        # progress printing is rank 0's job
         # the broadcast ships RELATIVE time: only differences of clock
         # values are ever consumed, and a raw epoch (~1.7e9) canonicalized
         # to float32 under x64-off would quantize to 128-second steps

@@ -30,9 +30,11 @@ on the on-the-fly route) stays on the device by default on CUDA
 (:meth:`CondTestEngine.cont_tests_begin`, :func:`_cont_digest`): the
 candidates' correlations, the float64 pcor DP (``statfuns.pcor_dp_tensor``),
 the Fisher-z log-p and the per-candidate decisions, with one copy of (3, NC)
-numbers to the host a round.  On the CPU, and for fz's gather
-(``fz_tests_finish``), the pcor DP runs on the host in float64
-(``statfuns.pcor_dp``).
+numbers to the host a round.  On the CPU the scheduler digests those
+windows on the host in float64 (``statfuns.pcor_dp``).  fz's per-test
+gather (``fz_tests_begin`` / ``fz_tests_finish``) runs the pcor DP on the
+device too (``statfuns.pcor_dp_tensor``, bit for bit numpy's) and copies
+back one statistic a test; its p-values are scipy's on the host.
 
 The mi / mi_nz windows have two device digests where (L-1)^2 * S <= 128
 (3-level nz tables and 2-level tables at max_k = 3):
@@ -53,6 +55,29 @@ The mi / mi_nz windows have two device digests where (L-1)^2 * S <= 128
 All three device digests reduce per candidate through
 :func:`_digest_reduce` and return (3, NC) numbers, copied to the host once
 a round.
+
+On a device mesh (``CondTestEngine(..., mesh=...)``, ``parallel.mesh``) the
+table (and fz's correlation state) is replicated onto each distinct device
+and every ``*_begin`` shards its work over the shards, each running the
+same per-chunk functions on its own device; the results are gathered
+device-major onto the primary device and the padding stripped, so every
+result equals the unmeshed engine's (the JAX package's ``shard_map``
+variants ``_sharded_mi_cond_fn``, ``_mi_cond_scan_fn``,
+``_mi_cond_digest_scan_fn``, ``_turbo_digest_fn``,
+``_sharded_masked_cor_fn``, ``_sharded_fz_cond_fn``,
+``_sharded_fz_cond_onfly_fn`` and ``_cont_digest_fn``):
+
+- mi / mi_nz tests and fz tests: the batch padded to a multiple of the
+  shard count and split into equal device-major pieces
+  (:meth:`CondTestEngine._shards`); the on-the-fly Gram's row chunks follow
+  the whole batch's size, so each test sums in the same order as unmeshed;
+- masked correlations: whole ``MCOR_SEG`` segments a shard;
+- the mi window digest: the tests sharded as above and gathered before the
+  per-candidate reduction, which runs on the primary device (a candidate's
+  tests may straddle shards);
+- the turbo digest: whole windows a shard (each window holds its own
+  candidates);
+- the continuous digest: whole ``MCOR_SEG`` segments of candidates a shard.
 """
 
 from __future__ import annotations
@@ -66,6 +91,7 @@ import torch
 from . import statfuns as sf
 from .contingency import cond_ctab_batch
 from .univariate import _fz_center, cor_matrix
+from ..parallel.mesh import gather, pad_to_multiple, put_replicated
 from ..types import TestResult
 
 # running count of conditional CI tests dispatched (bench/diagnostics)
@@ -174,6 +200,12 @@ def _mi_cond_kernel(data, levels, maxv, X, Y, Zs, kvec, hps, max_k, L, S,
     return stat, df, n_obs, suff
 
 
+def _row_chunk(n, B, m):
+    """Rows a step of the correlation kernels: the gathered (rows, B, m)
+    tensor stays within ``MCOR_ROW_BUDGET`` elements."""
+    return max(64, min(n, MCOR_ROW_BUDGET // max(B * m, 1)))
+
+
 def _masked_cor_kernel(data, X, Y, var_idx, B, m, plain=False):
     """Correlation submatrices over the rows where X and Y are both nonzero
     (``plain``: over all rows, fz's fast windows past the p x p wall).
@@ -186,7 +218,7 @@ def _masked_cor_kernel(data, X, Y, var_idx, B, m, plain=False):
     tensor within ``MCOR_ROW_BUDGET`` elements.  The mask is a multiply, so
     nothing here waits for the device."""
     n = data.shape[0]
-    chunk = max(64, min(n, MCOR_ROW_BUDGET // max(B * m, 1)))
+    chunk = _row_chunk(n, B, m)
     flat = var_idx.reshape(-1)
     n_obs = torch.zeros(B, dtype=data.dtype, device=data.device)
     S1 = torch.zeros((B, m), dtype=data.dtype, device=data.device)
@@ -226,17 +258,19 @@ def _fz_cond_kernel(C, X, Y, Zs, kvec, max_k):
     return C[idx[:, :, None], idx[:, None, :]]
 
 
-def _fz_cond_onfly_kernel(xc, ssd, X, Y, Zs, kvec, max_k):
+def _fz_cond_onfly_kernel(xc, ssd, X, Y, Zs, kvec, max_k, chunk=None):
     """:func:`_fz_cond_kernel`'s submatrices built from the centered table
     (``ops.univariate._fz_center``) without the (p, p) matrix: a Gram of
     each test's m columns over row chunks that keep the gathered
     (rows, B, m) tensor within ``MCOR_ROW_BUDGET`` elements, divided by the
     columns' ssd products, NaN where one is 0, clamped to [-1, 1]: per entry
-    ``ops.univariate.fz_block``'s arithmetic up to summation order."""
+    ``ops.univariate.fz_block``'s arithmetic up to summation order.
+    ``chunk``: the row chunk (a mesh shard takes its whole batch's)."""
     n = xc.shape[0]
     idx = _fz_index(X, Y, Zs, kvec, max_k)
     B, m = idx.shape
-    chunk = max(64, min(n, MCOR_ROW_BUDGET // max(B * m, 1)))
+    if chunk is None:
+        chunk = _row_chunk(n, B, m)
     flat = idx.reshape(-1)
     G = torch.zeros((B, m, m), dtype=xc.dtype, device=xc.device)
     for r0 in range(0, n, chunk):
@@ -457,13 +491,20 @@ class CondTestEngine:
     windows through :meth:`turbo_tests_begin` / :meth:`turbo_tests_finish`,
     on by default on every device (``FORCE_TURBO_MXU``), as the JAX package
     runs it under float64.  A failure in any device digest raises: nothing falls back to
-    the host digest."""
+    the host digest.
+
+    ``mesh`` (a :class:`..parallel.mesh.Mesh`): ``device`` is the mesh's
+    primary device, the table (and fz's correlation state) goes once onto
+    each distinct device of the mesh (``tables``: one a local shard), and
+    every ``*_begin`` shards its work over the mesh (module docstring)."""
 
     def __init__(self, data: np.ndarray, test_name: str, max_k: int,
                  levels=None, max_vals=None, cor_mat=None, hps: int = 5,
                  n_obs_min: int = 0, recursive_pcor: bool = True,
-                 state=None, device="cuda"):
-        self.mesh = None
+                 state=None, device="cuda", mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.primary
         self.test_name = test_name
         self.max_k = max_k
         self.hps = hps
@@ -486,14 +527,18 @@ class CondTestEngine:
                 state = from_numpy_continuous(data, device)
             self.data = state
             self.device = state.device
+            self.tables = self._replicate(state)
             self.levels = None
             if not self.nz and recursive_pcor and max_k > 0 and cor_mat is None:
                 self.cor_onfly = (8 * self.p ** 2 > FZ_COR_BYTES
                                   or FORCE_COR_ONFLY)
                 if self.cor_onfly:
                     self.xc, self.ssd = _fz_center(state)
+                    self.cor_state = list(zip(self._replicate(self.xc),
+                                              self._replicate(self.ssd)))
                 else:
                     self.cor_j = cor_matrix(state)
+                    self.cor_state = self._replicate(self.cor_j)
                 self.cor_device = True
             # the continuous window digest on the device (fz_nz, fz past
             # the wall): on CUDA unless FORCE_CONT_DEV says otherwise
@@ -508,6 +553,7 @@ class CondTestEngine:
             state = from_numpy_state(data, levels, max_vals, device)
         self.state = state
         self.device = state.device
+        self.tables = self._replicate(state)
         self.levels = state.levels_np
         self.max_vals = state.max_vals_np
         self.L = state.L
@@ -528,29 +574,66 @@ class CondTestEngine:
                               else bool(FORCE_TURBO_MXU))
         self._turbo_dev_cache = {}
 
-    def _upload(self, a, shape=None):
+    def _replicate(self, x):
+        """``x`` on each local shard of the mesh ([x] without one)."""
+        return [x] if self.mesh is None else put_replicated(x, self.mesh)
+
+    def _upload(self, a, shape=None, device=None):
         t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64))
         if shape is not None:
             t = t.reshape(shape)
-        return t.to(self.device, non_blocking=True)
+        return t.to(self.device if device is None else device,
+                    non_blocking=True)
 
-    def _mi_chunks(self, X, Y, Zs, kvec):
-        """(stat, df, n_obs, suff) of B conditional MI tests on the device,
-        a tuple for each chunk of tests whose (n, B) gathers stay within
-        ``CHUNK_ELEMS``."""
+    def _shards(self, arrays, B):
+        """The local shards' pieces of B items: yields (shard, pieces of
+        ``arrays``) with the items padded (zeros) to a multiple of the shard
+        count and split into equal device-major pieces; one piece, shard 0,
+        without a mesh.  Results gather with :meth:`_gather`."""
+        if self.mesh is None:
+            yield 0, arrays
+            return
+        arrays = [pad_to_multiple(np.asarray(a), self.mesh.size, 0)
+                  for a in arrays]
+        Bp = B + (-B) % self.mesh.size
+        for i, a, b in self.mesh.shard_ranges(Bp):
+            yield i, [x[a:b] for x in arrays]
+
+    def _gather(self, parts, B, dim=0):
+        """The local shards' results (one tensor a shard) concatenated
+        device-major over the mesh along ``dim`` on the primary device, cut
+        to the B unpadded items."""
+        if self.mesh is None:
+            return parts[0]
+        return gather(self.mesh, parts, dim=dim).narrow(dim, 0, B)
+
+    def _mi_chunks(self, X, Y, Zs, kvec, shard=0):
+        """(stat, df, n_obs, suff) of B conditional MI tests on the device
+        of local ``shard``, a tuple for each chunk of tests whose (n, B)
+        gathers stay within ``CHUNK_ELEMS``."""
         B = len(X)
         chunk = max(1, CHUNK_ELEMS // max(self.n, 1))
-        st = self.state
+        st = self.tables[shard]
+        up = lambda a, shape=None: self._upload(a, shape, st.device)  # noqa: E731
         parts = []
         for s0 in range(0, B, chunk):
             s1 = min(B, s0 + chunk)
             parts.append(_mi_cond_kernel(
-                st.data, st.levels, st.max_vals, self._upload(X[s0:s1]),
-                self._upload(Y[s0:s1]),
-                self._upload(Zs[s0:s1], (s1 - s0, self.max_k)),
-                self._upload(kvec[s0:s1]), float(self.hps), self.max_k,
-                self.L, self.S_hist, self.nz, self.nzu))
+                st.data, st.levels, st.max_vals, up(X[s0:s1]), up(Y[s0:s1]),
+                up(Zs[s0:s1], (s1 - s0, self.max_k)), up(kvec[s0:s1]),
+                float(self.hps), self.max_k, self.L, self.S_hist, self.nz,
+                self.nzu))
         return parts
+
+    def _mi_sharded(self, X, Y, Zs, kvec):
+        """(stat, df, n_obs, suff) of B tests on a mesh: each shard's piece
+        through :meth:`_mi_chunks` on its own device, stacked (4, B) float64
+        and gathered onto the primary device."""
+        B = len(X)
+        parts = [torch.stack([torch.cat(t).to(torch.float64) for t in
+                              zip(*self._mi_chunks(*arrs, shard=i))])
+                 for i, arrs in self._shards([X, Y, Zs, kvec], B)]
+        return self._gather(parts, B, dim=1)
 
     def mi_tests_begin(self, X: np.ndarray, Y: np.ndarray, Zs: np.ndarray,
                        kvec: np.ndarray):
@@ -558,6 +641,8 @@ class CondTestEngine:
         for :meth:`mi_tests_finish` without waiting for them."""
         global N_TESTS_DISPATCHED
         N_TESTS_DISPATCHED += len(X)
+        if self.mesh is not None and len(X):
+            return [self._mi_sharded(X, Y, Zs, kvec)]
         return [torch.stack([stat, df.to(torch.float64), n_obs,
                              suff.to(torch.float64)])
                 for stat, df, n_obs, suff in self._mi_chunks(X, Y, Zs, kvec)]
@@ -589,8 +674,12 @@ class CondTestEngine:
         B = len(X)
         N_TESTS_DISPATCHED += B
         with torch.profiler.record_function("mi_digest"):
-            parts = self._mi_chunks(X, Y, Zs, kvec)
-            stat, df, n_obs, suff = (torch.cat(t) for t in zip(*parts))
+            if self.mesh is None:
+                parts = self._mi_chunks(X, Y, Zs, kvec)
+                stat, df, n_obs, suff = (torch.cat(t) for t in zip(*parts))
+            else:
+                stat, df, n_obs, suff = self._mi_sharded(X, Y, Zs, kvec)
+                df, suff = df.to(torch.int64), suff != 0
             return _mi_digest(stat, df, n_obs, suff, self._upload(counts), B,
                               math.log(alpha),
                               (self.L - 1) ** 2 * self.S_hist)
@@ -613,34 +702,45 @@ class CondTestEngine:
         :func:`_turbo_pair_stats` in chunks of windows whose stratum planes
         stay within ``TURBO_PLANE_BYTES``; each template test takes its
         pair's through ``jb * U + ub``, and :func:`_mi_digest` digests the
-        (window, slot) segments of all W windows at once.  The work runs
-        under the profiler range ``turbo_digest``, which
+        (window, slot) segments of all W windows at once.  On a mesh each
+        shard digests whole windows, and the (3, W, NC) digests gather along
+        W.  The work runs under the profiler range ``turbo_digest``, which
         ``profile_slice.py`` reads."""
         global N_TESTS_DISPATCHED
-        W, B, NC = len(Ts), tpl["B"], tpl["NC"]
-        N_TESTS_DISPATCHED += W * B
+        W = len(Ts)
+        N_TESTS_DISPATCHED += W * tpl["B"]
         with torch.profiler.record_function("turbo_digest"):
-            const = self._turbo_dev_cache.get(m)
-            if const is None:
-                const = (self._upload(tpl["memb"]), self._upload(tpl["klen"]),
-                         self._upload(tpl["jb"].astype(np.int64) * tpl["U"]
-                                      + tpl["ub"]),
-                         self._upload(tpl["counts"]))
-                self._turbo_dev_cache[m] = const
-            memb, klen, pairid, counts = const
-            Wc = max(1, TURBO_PLANE_BYTES // (4 * self.n * tpl["U"] * self.S))
-            Ts_d = self._upload(Ts)
-            C_d = self._upload(cands, (W, m))
-            st = self.state
-            parts = [_turbo_pair_stats(
-                st.data, st.levels, st.max_vals, Ts_d[s:s + Wc],
-                C_d[s:s + Wc], memb, klen, float(self.hps), self.L, self.S,
-                self.nz, self.nzu) for s in range(0, W, Wc)]
-            stat, df, n_obs, suff = (torch.cat(t)[:, pairid].reshape(-1)
-                                     for t in zip(*parts))
-            return _mi_digest(stat, df, n_obs, suff, counts.repeat(W), W * B,
-                              math.log(alpha),
-                              (self.L - 1) ** 2 * self.S_hist).reshape(3, W, NC)
+            parts = [self._turbo_windows(m, *arrs, alpha, tpl, i)
+                     for i, arrs in self._shards(
+                         [Ts, np.asarray(cands).reshape(W, m)], W)]
+            return self._gather(parts, W, dim=1)
+
+    def _turbo_windows(self, m, Ts, cands, alpha, tpl, shard=0):
+        """:meth:`turbo_tests_begin`'s (3, W, NC) digests of the windows
+        (Ts, cands) on the device of local ``shard``."""
+        W, B, NC = len(Ts), tpl["B"], tpl["NC"]
+        st = self.tables[shard]
+        dev = st.device
+        const = self._turbo_dev_cache.get((m, dev))
+        if const is None:
+            const = tuple(self._upload(a, device=dev) for a in (
+                tpl["memb"], tpl["klen"],
+                tpl["jb"].astype(np.int64) * tpl["U"] + tpl["ub"],
+                tpl["counts"]))
+            self._turbo_dev_cache[(m, dev)] = const
+        memb, klen, pairid, counts = const
+        Wc = max(1, TURBO_PLANE_BYTES // (4 * self.n * tpl["U"] * self.S))
+        Ts_d = self._upload(Ts, device=dev)
+        C_d = self._upload(cands, (W, m), dev)
+        parts = [_turbo_pair_stats(
+            st.data, st.levels, st.max_vals, Ts_d[s:s + Wc], C_d[s:s + Wc],
+            memb, klen, float(self.hps), self.L, self.S, self.nz, self.nzu)
+            for s in range(0, W, Wc)]
+        stat, df, n_obs, suff = (torch.cat(t)[:, pairid].reshape(-1)
+                                 for t in zip(*parts))
+        return _mi_digest(stat, df, n_obs, suff, counts.repeat(W), W * B,
+                          math.log(alpha),
+                          (self.L - 1) ** 2 * self.S_hist).reshape(3, W, NC)
 
     def turbo_tests_finish(self, handle):
         """(exit_e (W, NC) int64, wstat (W, NC), wpval (W, NC)) from a
@@ -670,12 +770,32 @@ class CondTestEngine:
         """Enqueue the masked correlations of ``pairs`` (T, candidate) over
         their variable lists [T, candidate, Z_total...] on the device, in
         segments of ``MCOR_SEG`` pairs, and return the handles without
-        waiting.  ``plain``: over all rows (fz)."""
-        return [self._masked_cor_seg(pairs[s:s + MCOR_SEG],
-                                     var_lists[s:s + MCOR_SEG], plain)
-                for s in range(0, len(pairs), MCOR_SEG)]
+        waiting.  ``plain``: over all rows (fz).  On a mesh each shard takes
+        whole segments, each gathered onto the primary device: a segment's
+        row sums then run as without a mesh (torch's CPU sums over the rows
+        round a column by its place in the batch)."""
+        segs = range(0, len(pairs), MCOR_SEG)
+        if self.mesh is None:
+            return [self._masked_cor_seg(pairs[s:s + MCOR_SEG],
+                                         var_lists[s:s + MCOR_SEG], plain)
+                    for s in segs]
+        owner = {j: i for i, j0, j1 in self.mesh.shard_ranges(len(segs))
+                 for j in range(j0, j1)}
+        handles = []
+        for j, s in enumerate(segs):
+            vls = var_lists[s:s + MCOR_SEG]
+            m = _bucket_m(max(len(v) for v in vls))
+            parts = [self._masked_cor_seg(pairs[s:s + MCOR_SEG], vls, plain,
+                                          i)[0] if owner.get(j) == i
+                     else torch.empty((0, m * m + 1), dtype=t.dtype,
+                                      device=t.device)
+                     for i, t in enumerate(self.tables)]
+            handles.append((gather(self.mesh, parts), len(vls), m))
+        return handles
 
-    def _masked_cor_seg(self, pairs, var_lists, plain=False):
+    def _masked_cor_seg(self, pairs, var_lists, plain=False, shard=0):
+        """One segment's (B, m*m + 1) correlations and row counts on the
+        device of local ``shard``."""
         B = len(pairs)
         m = _bucket_m(max(len(v) for v in var_lists))
         X = np.zeros(B, np.int64)
@@ -685,8 +805,9 @@ class CondTestEngine:
             X[i], Y[i] = x, y
             VI[i, : len(vl)] = vl
             VI[i, len(vl):] = x  # pad with X; padded entries are never read
-        out = _masked_cor_kernel(self.data, self._upload(X), self._upload(Y),
-                                 self._upload(VI), B, m, plain)
+        data = self.tables[shard]
+        up = lambda a: self._upload(a, device=data.device)  # noqa: E731
+        out = _masked_cor_kernel(data, up(X), up(Y), up(VI), B, m, plain)
         return out, B, m
 
     def masked_cor_finish(self, handles):
@@ -749,31 +870,51 @@ class CondTestEngine:
         cend = np.zeros(NC + 1, np.int64)
         np.cumsum(counts, out=cend[1:])
         mv = _bucket_m(max(len(v) for v in var_lists))
-        counts_d = self._upload(counts)
-        POS_d = self._upload(POS)
-        KV_d = self._upload(KV)
+        if self.mesh is None:
+            return self._cont_range(var_lists, POS, KV, counts, cend, mv,
+                                    alpha, 0, NC)
+        # whole MCOR_SEG segments a shard, gathered along the candidates
+        nseg = -(-NC // MCOR_SEG)
+        parts = []
+        for i, s0, s1 in self.mesh.shard_ranges(nseg):
+            c0, c1 = min(NC, s0 * MCOR_SEG), min(NC, s1 * MCOR_SEG)
+            hs = self._cont_range(var_lists, POS, KV, counts, cend, mv, alpha,
+                                  c0, c1, i)
+            parts.append(torch.cat(hs, dim=1) if hs else torch.zeros(
+                (3, 0), dtype=torch.float64, device=self.tables[i].device))
+        return [self._gather(parts, NC, dim=1)]
+
+    def _cont_range(self, var_lists, POS, KV, counts, cend, mv, alpha, lo, hi,
+                    shard=0):
+        """:func:`_cont_digest` handles of candidates [lo, hi) on the device
+        of local ``shard``, in chunks of ``MCOR_SEG`` segments from ``lo``
+        whose per-test submatrices stay within ``CONT_SUB_BYTES``."""
+        data = self.tables[shard]
+        dev = data.device
+        b_lo, b_hi = int(cend[lo]), int(cend[hi])
+        counts_d = self._upload(counts[lo:hi], device=dev)
+        POS_d = self._upload(POS[b_lo:b_hi], device=dev)
+        KV_d = self._upload(KV[b_lo:b_hi], device=dev)
         cap = CONT_SUB_BYTES // (8 * (self.max_k + 2) ** 2)
         log_alpha = math.log(alpha)
         handles = []
-        c0 = 0
-        while c0 < NC:
-            c1 = min(NC, c0 + MCOR_SEG)
-            while c1 < NC and cend[min(NC, c1 + MCOR_SEG)] - cend[c0] <= cap:
-                c1 = min(NC, c1 + MCOR_SEG)
-            b0, b1 = int(cend[c0]), int(cend[c1])
-            C = torch.zeros((c1 - c0, mv, mv), dtype=self.data.dtype,
-                            device=self.device)
-            nobs = torch.empty(c1 - c0, dtype=self.data.dtype,
-                               device=self.device)
+        c0 = lo
+        while c0 < hi:
+            c1 = min(hi, c0 + MCOR_SEG)
+            while c1 < hi and cend[min(hi, c1 + MCOR_SEG)] - cend[c0] <= cap:
+                c1 = min(hi, c1 + MCOR_SEG)
+            b0, b1 = int(cend[c0]) - b_lo, int(cend[c1]) - b_lo
+            C = torch.zeros((c1 - c0, mv, mv), dtype=data.dtype, device=dev)
+            nobs = torch.empty(c1 - c0, dtype=data.dtype, device=dev)
             for s in range(c0, c1, MCOR_SEG):
                 vls = var_lists[s:min(c1, s + MCOR_SEG)]
                 out, B, m = self._masked_cor_seg(
-                    [(v[0], v[1]) for v in vls], vls, plain=not self.nz)
+                    [(v[0], v[1]) for v in vls], vls, not self.nz, shard)
                 C[s - c0:s - c0 + B, :m, :m] = out[:, :m * m].reshape(B, m, m)
                 nobs[s - c0:s - c0 + B] = out[:, m * m]
             handles.append(_cont_digest(
-                C, nobs, counts_d[c0:c1], POS_d[b0:b1], KV_d[b0:b1], b1 - b0,
-                self.max_k, log_alpha, float(self.n_obs_min)))
+                C, nobs, counts_d[c0 - lo:c1 - lo], POS_d[b0:b1], KV_d[b0:b1],
+                b1 - b0, self.max_k, log_alpha, float(self.n_obs_min)))
             c0 = c1
         return handles
 
@@ -794,7 +935,10 @@ class CondTestEngine:
                        kvec: np.ndarray):
         """Enqueue B fz tests (Zs (B, max_k), padded) on the device, in
         chunks of ``FZ_CHUNK``: each gathers (or, on the fly, builds) the
-        tests' correlation submatrices.  Returns a handle for
+        tests' correlation submatrices and runs the float64 pcor DP on them
+        there (``statfuns.pcor_dp_tensor``, the reference's 1e-5 rounding,
+        src/statfuns.jl:39,51, bit for bit numpy's).  On a mesh each chunk
+        is sharded and its (B,) statistics gathered.  Returns a handle for
         :meth:`fz_tests_finish` without waiting.  With fewer rows than
         n_obs_min nothing is launched: every test is unreliable."""
         global N_TESTS_DISPATCHED
@@ -803,32 +947,40 @@ class CondTestEngine:
         if self.n < self.n_obs_min:
             return B, None
         CH = self.FZ_CHUNK
-        return B, [self._fz_chunk(X[s:s + CH], Y[s:s + CH], Zs[s:s + CH],
-                                  kvec[s:s + CH]) for s in range(0, B, CH)]
+        parts = []
+        for s in range(0, B, CH):
+            arrs = [X[s:s + CH], Y[s:s + CH], Zs[s:s + CH], kvec[s:s + CH]]
+            Bc = len(arrs[0])
+            chunk = _row_chunk(self.n, Bc, self.max_k + 2)
+            parts.append(self._gather(
+                [self._fz_chunk(*a, chunk, i)
+                 for i, a in self._shards(arrs, Bc)], Bc))
+        return B, parts
 
-    def _fz_chunk(self, X, Y, Zs, kvec):
-        args = (self._upload(X), self._upload(Y),
-                self._upload(Zs, (len(X), self.max_k)), self._upload(kvec),
-                self.max_k)
+    def _fz_chunk(self, X, Y, Zs, kvec, chunk, shard=0):
+        """The pcor DP statistics (B,) of B fz tests on the device of local
+        ``shard``; ``chunk``: the on-the-fly Gram's row chunk."""
+        dev = self.tables[shard].device
+        kv = self._upload(kvec, device=dev)
+        args = (self._upload(X, device=dev), self._upload(Y, device=dev),
+                self._upload(Zs, (len(X), self.max_k), dev), kv, self.max_k)
         if self.cor_onfly:
-            out = _fz_cond_onfly_kernel(self.xc, self.ssd, *args)
+            xc, ssd = self.cor_state[shard]
+            out = _fz_cond_onfly_kernel(xc, ssd, *args, chunk)
         else:
-            out = _fz_cond_kernel(self.cor_j, *args)
-        return out, np.asarray(kvec, np.int64)
+            out = _fz_cond_kernel(self.cor_state[shard], *args)
+        return sf.pcor_dp_tensor(out, kv, self.max_k)
 
     def fz_tests_finish(self, handle):
         """(stat, pval, df, suff) in host float64 for a
         :meth:`fz_tests_begin` handle (reference: src/tests.jl:250-265: df
-        0, suff the run-level n_obs check).  The pcor DP runs here in
-        float64 with the reference's 1e-5 rounding (src/statfuns.jl:39,51);
-        one device-to-host copy a chunk."""
+        0, suff the run-level n_obs check): one device-to-host copy of the
+        (B,) statistics, scipy's p-values on the host."""
         B, parts = handle
         if parts is None:
             return (np.zeros(B), np.ones(B), np.zeros(B, np.int64),
                     np.zeros(B, bool))
-        stat = np.concatenate(
-            [sf.pcor_dp(out.cpu().numpy(), kvec, self.max_k, xp=np)
-             for out, kvec in parts] or [np.zeros(0)])
+        stat = (torch.cat(parts).cpu().numpy() if parts else np.zeros(0))
         pval = np.asarray(sf.fz_pval(stat, self.n, 0))
         return stat, pval, np.zeros(B, np.int64), np.ones(B, bool)
 
@@ -838,9 +990,9 @@ class CondTestEngine:
 
     def release(self):
         """Drop the fz correlation state (the (p, p) matrix or the centered
-        table) so that its device memory is freed with the run, not when
-        the collector reaches the engine."""
-        self.cor_j = self.xc = self.ssd = None
+        table, and their replicas) so that its device memory is freed with
+        the run, not when the collector reaches the engine."""
+        self.cor_j = self.xc = self.ssd = self.cor_state = None
 
     def fz_tests_from_cor_raw(self, C: np.ndarray, pos_X: np.ndarray,
                               pos_Y: np.ndarray, pos_Zs: np.ndarray,

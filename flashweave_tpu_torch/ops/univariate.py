@@ -30,6 +30,17 @@ over them on the device, and only the significant pairs reach the host.
 host into p^2/2 float64 vectors, scipy p-values and BH there (the
 reference keeps all statistics in Float64).  fz also takes the host path
 over an explicit ``cor_mat`` (the JAX package's ``have_cor``).
+
+On a device mesh (``parallel.mesh``, ``mesh=``) each block's Y-slab is
+split into ``mesh.size`` contiguous device-major pieces, and each shard
+launches the same block function on its own piece of its replica of the
+table (:class:`_ShardedBlocks`; the JAX package's ``shard_map`` of
+``_passA_fn`` / ``_passB_fn`` and ``_mesh_*_block_fn``).  The extraction
+sums the per-edge and unreliable counts over the shards, checks
+``EXTRACT_BUDGET`` against the global count, gathers the candidates and runs
+BH on the primary device; the host path gathers each block along Y.  Every
+pair is computed by the same kernel as without a mesh, so the neighbor
+dicts are the same.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ from . import statfuns as sf
 from .kernels import (K1_LEVELS, PLANES_LEVELS, fz_nz_stats, mi_univar_stats,
                       mi_univar_stats_planes, mi_univar_stats_ref,
                       pair_ctab_planes)
+from ..parallel.mesh import gather, psum, put_replicated
 from ..types import PSortedNbrs
 from ..utils.misc import is_zero_adjusted, isdiscrete
 
@@ -330,11 +342,49 @@ def _sweep_blocks(p: int, tile_sz: int):
         yield s, min(tile_sz, p - s), y_start, y_len
 
 
+class _ShardedBlocks:
+    """One block function a local shard of ``mesh``, each bound to the
+    shard's replica of the table.  :meth:`units` splits a block's Y-slab
+    into the shards' pieces; calling the object runs every local piece and
+    gathers the block along Y (the host path)."""
+
+    def __init__(self, mesh, blocks):
+        self.mesh = mesh
+        self.blocks = blocks
+
+    def units(self, y_start, y_len):
+        """(local shard, y0, ylen) of this process's nonempty pieces."""
+        for i, a, b in self.mesh.shard_ranges(y_len):
+            if b > a:
+                yield i, y_start + a, b - a
+
+    def __call__(self, s, t, y_start, y_len):
+        outs = []
+        for i, a, b in self.mesh.shard_ranges(y_len):
+            if b > a:
+                outs.append(self.blocks[i](s, t, y_start + a, b - a))
+            else:       # an empty piece: a zero-width slice of the outputs
+                outs.append(tuple(o[:, :0] if o.dim() > 1 else o for o in
+                                  self.blocks[i](s, t, y_start, 1)))
+        return tuple(gather(self.mesh, col, dim=1) if col[0].dim() > 1
+                     else col[0].to(self.mesh.primary) for col in zip(*outs))
+
+
+def _bind(bind, tables, mesh):
+    """``bind(*tables)`` without a mesh; with one, :class:`_ShardedBlocks`
+    of ``bind`` over each shard's replicas of ``tables``."""
+    if mesh is None:
+        return bind(*tables)
+    reps = zip(*(put_replicated(t, mesh) for t in tables))
+    return _ShardedBlocks(mesh, [bind(*r) for r in reps])
+
+
 def _mi_blocks(data, test_name, hps, n_obs_min, levels, max_vals, tile_sz,
-               state, device, block_fn):
+               state, device, block_fn, mesh=None):
     """The mi / mi_nz pass's block function, bound to the table on the
-    device: returns (block, tile, max_df), where block(s, t, y_start, y_len)
-    gives (stat, df, n_obs, suff) and max_df bounds every df of the table.
+    device (on each shard of ``mesh``): returns (block, tile, max_df), where
+    block(s, t, y_start, y_len) gives (stat, df, n_obs, suff) and max_df
+    bounds every df of the table.
     """
     p = data.shape[1]
     nz = int(is_zero_adjusted(test_name))
@@ -355,33 +405,44 @@ def _mi_blocks(data, test_name, hps, n_obs_min, levels, max_vals, tile_sz,
     max_lv = min(L, int(state.levels_np.max(initial=1)))
     max_df = (max_lv - 1) ** 2
 
-    def block(s, t, y_start, y_len):
-        return block_fn(state.dataT, state.marg, state.levels, state.max_vals,
-                        s, t, L, y_start, y_len, nz, float(hps),
-                        float(n_obs_min))
+    def bind(st):
+        return lambda s, t, y_start, y_len: block_fn(
+            st.dataT, st.marg, st.levels, st.max_vals, s, t, L, y_start,
+            y_len, nz, float(hps), float(n_obs_min))
 
-    return block, tile_sz, max_df
+    return _bind(bind, (state,), mesh), tile_sz, max_df
 
 
-def _fz_nz_blocks(data, table, device, block_fn):
+def _fz_nz_blocks(data, table, device, block_fn, mesh=None):
     """The fz_nz pass's block function (default K2) bound to the float64
-    table on the device: block(s, t, y_start, y_len) gives (r, N)."""
+    table on the device (on each shard of ``mesh``):
+    block(s, t, y_start, y_len) gives (r, N)."""
     if block_fn is None:
         block_fn = fz_nz_stats
     if table is None:
         table = put_continuous(data, device)
-    return lambda s, t, y_start, y_len: block_fn(table, s, t, y_start, y_len)
+
+    def bind(tb):
+        return lambda s, t, y_start, y_len: block_fn(tb, s, t, y_start,
+                                                     y_len)
+
+    return _bind(bind, (table,), mesh)
 
 
-def _fz_blocks(data, table, device):
+def _fz_blocks(data, table, device, mesh=None):
     """The fz pass's block function bound to the centered table on the
-    device: block(s, t, y_start, y_len) gives (r, n), n the row count as a
-    0-dim tensor (every pair is tested over all rows)."""
+    device (centered once, then on each shard of ``mesh``):
+    block(s, t, y_start, y_len) gives (r, n), n the row count as a 0-dim
+    tensor (every pair is tested over all rows)."""
     xc, ssd = _fz_center(data if table is None else table, device)
     n = torch.tensor(float(xc.shape[0]), dtype=torch.float64,
                      device=xc.device)
-    return lambda s, t, y_start, y_len: (fz_block(xc, ssd, s, t, y_start,
-                                                  y_len), n)
+
+    def bind(xc, ssd, n):
+        return lambda s, t, y_start, y_len: (fz_block(xc, ssd, s, t, y_start,
+                                                      y_len), n)
+
+    return _bind(bind, (xc, ssd, n), mesh)
 
 
 def _mi_pass(block, p, tile_sz):
@@ -521,39 +582,84 @@ def _block_scores(kind, outs, s, y_start, reliable, n_obs_min=0.0,
     return logp, stat, unrel.sum()
 
 
+def _units(block, blocks):
+    """(block function, local shard, s, t, y0, ylen) of every kernel call
+    of a sweep over ``blocks``: each block whole, or under a mesh
+    (:class:`_ShardedBlocks`) this process's pieces of its Y-slab."""
+    for s, t, y_start, y_len in blocks:
+        if isinstance(block, _ShardedBlocks):
+            for i, y0, ylen in block.units(y_start, y_len):
+                yield block.blocks[i], i, s, t, y0, ylen
+        else:
+            yield block, 0, s, t, y_start, y_len
+
+
+def _add(total, x):
+    return x if total is None else total + x.to(total.device)
+
+
 def _sweep(kind, block, blocks, thresh, reliable, n_obs_min, max_df,
-           edges=None):
+           edges=None, calls=None):
     """One pass over the blocks, keeping the candidates (logp < thresh)
     while their total stays within EXTRACT_BUDGET.  With ``edges`` (numpy) it
     also counts, in int64 on the device, the log p-values below each edge
-    and the unreliable pairs.
+    and the unreliable pairs.  ``calls`` (a list a local shard) receives
+    the block calls of each shard.
 
     Returns (n_candidates, candidates, counts, n_unreliable); candidates
     are (X int32, Y int32, logp, stat) on the device, or None past the
-    budget or when there are none.  Each block syncs with the host once, in torch.nonzero."""
+    budget or when there are none.  Each block syncs with the host once, in
+    torch.nonzero.  Under a mesh the counts and n_candidates are summed
+    over every shard, and the candidates gathered onto the primary device,
+    on every process."""
+    mesh = block.mesh if isinstance(block, _ShardedBlocks) else None
     kept, parts = 0, []
-    counts = unrel = 0
-    for s, t, y_start, y_len in blocks:
-        logp, stat, n_unrel = _block_scores(kind, block(s, t, y_start, y_len),
-                                            s, y_start, reliable, n_obs_min,
-                                            max_df)
+    counts = unrel = None
+    for fn, i, s, t, y0, ylen in _units(block, blocks):
+        logp, stat, n_unrel = _block_scores(kind, fn(s, t, y0, ylen), s, y0,
+                                            reliable, n_obs_min, max_df)
+        if calls is not None:
+            calls[i] += 1
         idx = torch.nonzero(logp.view(-1) < thresh).squeeze(1)
         lp = logp.view(-1)[idx]
         if edges is not None:
             e = torch.as_tensor(edges, dtype=torch.float64, device=lp.device)
-            counts = counts + (lp[:, None] < e[None, :]).sum(dim=0)
-            unrel = unrel + n_unrel
+            counts = _add(counts, (lp[:, None] < e[None, :]).sum(dim=0))
+            unrel = _add(unrel, n_unrel)
         kept += idx.numel()
         if parts is not None and kept > EXTRACT_BUDGET:
             parts = None                  # past the budget: count only
         if parts is not None:
-            parts.append((((idx // y_len) + s).to(torch.int32),
-                          ((idx % y_len) + y_start).to(torch.int32), lp,
+            parts.append((((idx // ylen) + s).to(torch.int32),
+                          ((idx % ylen) + y0).to(torch.int32), lp,
                           stat.reshape(-1)[idx]))
         del logp, stat, lp, idx
+    if mesh is not None:
+        return _mesh_totals(mesh, kept, parts, counts, unrel, edges)
     if parts is not None:
         parts = [torch.cat(c) for c in zip(*parts)] if parts else None
     return kept, parts, counts, unrel
+
+
+def _mesh_totals(mesh, kept, parts, counts, unrel, edges):
+    """:func:`_sweep`'s results summed over every shard of ``mesh`` (the
+    JAX package's psum of pass A's counts): the global candidate count
+    decides the budget on every process alike, and within it the
+    candidates are gathered device-major onto the primary device."""
+    dev = mesh.primary
+    kept = int(psum(mesh, torch.tensor([kept], dtype=torch.int64,
+                                       device=dev)))
+    if edges is not None:
+        zero = torch.zeros(len(edges), dtype=torch.int64, device=dev)
+        counts = psum(mesh, zero if counts is None else counts)
+        unrel = psum(mesh, zero[0] if unrel is None else unrel)
+    if kept == 0 or kept > EXTRACT_BUDGET:
+        return kept, None, counts, unrel
+    dtypes = (torch.int32, torch.int32, torch.float64, torch.float64)
+    cols = zip(*parts) if parts else ([] for _ in dtypes)
+    cand = [gather(mesh, list(c) or [torch.empty(0, dtype=d, device=dev)])
+            for c, d in zip(cols, dtypes)]
+    return kept, cand, counts, unrel
 
 
 def _extract(kind, block, p, tile_sz, alpha, FDR, reliable, n_obs_min=0.0,
@@ -563,13 +669,17 @@ def _extract(kind, block, p, tile_sz, alpha, FDR, reliable, n_obs_min=0.0,
     Decisions are float64 on the device: log p-values, the candidate sort
     and BH.  The n_sig significant rows cross to the host in one transfer.
     ``info``, when given, receives the route ("one sweep" or "two sweeps"),
-    K (the candidates BH ran over) and n_sig."""
+    K (the candidates BH ran over) and n_sig, and under a mesh
+    ``shard_calls``, the block calls of each local shard."""
     n_pairs = p * (p - 1) // 2
     blocks = list(_sweep_blocks(p, tile_sz))
     edges = _extract_edges(alpha, n_pairs)
     la = math.log(alpha)
+    calls = ([0] * len(block.blocks) if isinstance(block, _ShardedBlocks)
+             else None)
     kept, cand, counts, unrel = _sweep(kind, block, blocks, la, reliable,
-                                       n_obs_min, max_df, edges=edges)
+                                       n_obs_min, max_df, edges=edges,
+                                       calls=calls)
     m = n_pairs - (int(unrel) if reliable else 0)
     route = "one sweep"
     if kept > EXTRACT_BUDGET:
@@ -584,7 +694,7 @@ def _extract(kind, block, p, tile_sz, alpha, FDR, reliable, n_obs_min=0.0,
                 "keep FDR enabled to shrink the significant set (the host "
                 "path, return_result=True, holds O(p^2) float64)")
         kept, cand, _, _ = _sweep(kind, block, blocks, float(edges[b_hat]),
-                                  reliable, n_obs_min, max_df)
+                                  reliable, n_obs_min, max_df, calls=calls)
         if kept != K:
             raise RuntimeError(
                 f"the second univariate sweep found {kept} candidates where "
@@ -624,6 +734,8 @@ def _extract(kind, block, p, tile_sz, alpha, FDR, reliable, n_obs_min=0.0,
             nbr[int(y)][int(x)] = entry
     if info is not None:
         info.update(route=route, K=kept, n_sig=n_sig)
+        if calls is not None:
+            info["shard_calls"] = calls
     return nbr
 
 
@@ -644,6 +756,7 @@ def pw_univar_neighbors(
     device="cuda",
     block_fn=None,
     info: Optional[dict] = None,
+    mesh=None,
 ):
     """All-pairs univariate pass (reference: src/tests.jl:436-532).
 
@@ -672,20 +785,28 @@ def pw_univar_neighbors(
     :func:`mi_planes_block` (K3's planes, then :func:`mi_planes_stats`) and
     the plain :func:`..ops.kernels.mi_univar_stats_ref`, used to check the
     kernels' decisions on the card.
+
+    ``mesh`` (a :class:`..parallel.mesh.Mesh`) shards each block's Y-slab
+    over its shards (:class:`_ShardedBlocks`); the table is uploaded to, or
+    ``state`` read from, the mesh's primary device, and replicated once
+    onto each other distinct device.  Every process of a multi-process
+    mesh returns the same dicts.
     """
     p = data.shape[1]
     n_pairs = p * (p - 1) // 2
     tile_sz = _choose_tile(p, tile)
+    if mesh is not None:
+        device = mesh.primary
     if isdiscrete(test_name):
         block, tile_sz, max_df = _mi_blocks(data, test_name, hps, n_obs_min,
                                             levels, max_vals, tile_sz, state,
-                                            device, block_fn)
+                                            device, block_fn, mesh)
         if not return_result:
             return _extract("mi", block, p, tile_sz, alpha, FDR,
                             correct_reliable_only, max_df=max_df, info=info)
         stats, pvals, suff = _mi_pass(block, p, tile_sz)
     elif test_name == "fz_nz":
-        block = _fz_nz_blocks(data, state, device, block_fn)
+        block = _fz_nz_blocks(data, state, device, block_fn, mesh)
         if not return_result:
             return _extract("fz_nz", block, p, tile_sz, alpha, FDR,
                             correct_reliable_only, n_obs_min=n_obs_min,
@@ -695,14 +816,17 @@ def pw_univar_neighbors(
         have_cor = cor_mat is not None and np.size(cor_mat) > 0
         if not return_result and not have_cor:
             # blocked correlation sweep: the p x p matrix never exists
-            return _extract("fz", _fz_blocks(data, state, device), p,
+            return _extract("fz", _fz_blocks(data, state, device, mesh), p,
                             tile_sz, alpha, FDR, correct_reliable_only,
                             n_obs_min=n_obs_min, info=info)
         if have_cor:
             C = np.asarray(cor_mat, dtype=np.float64)[:p, :p]
-        else:
+        elif mesh is None:
             C = cor_matrix(data if state is None else state,
                            device).cpu().numpy()
+        else:       # column slabs of the matrix (the JAX package's _mesh_fz_fn)
+            C = _fz_blocks(data, state, device, mesh)(0, p, 0, p)[0]
+            C = C.cpu().numpy()
         stats = C[np.triu_indices(p, 1)]
         del C
         n_obs = np.full(n_pairs, data.shape[0])

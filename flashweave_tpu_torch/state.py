@@ -11,7 +11,11 @@ upload.
   (:func:`from_numpy_continuous`).
 
 Both turn the JAX package's table, as numpy arrays, into the port's state,
-so tests feed both packages the same prepared table.
+so tests feed both packages the same prepared table.  On a device mesh
+``parallel.mesh.put_replicated`` puts either one on every shard, one copy
+per distinct device (:meth:`DiscreteState.to`; the JAX package's
+``put_replicated`` of the table, ``ops/condtests.py:862-866`` and
+``ops/univariate.py:225-228``).
 """
 
 from __future__ import annotations
@@ -40,6 +44,17 @@ class DiscreteState:
     @property
     def device(self) -> torch.device:
         return self.data.device
+
+    def to(self, device) -> "DiscreteState":
+        """This state on ``device``: itself where it is there already."""
+        dev = torch.device(device)
+        if dev == self.device:
+            return self
+        return DiscreteState(
+            data=self.data.to(dev), dataT=self.dataT.to(dev),
+            levels=self.levels.to(dev), max_vals=self.max_vals.to(dev),
+            marg=self.marg.to(dev), levels_np=self.levels_np,
+            max_vals_np=self.max_vals_np, L=self.L)
 
 
 def from_numpy_state(data, levels: Optional[np.ndarray] = None,

@@ -1,7 +1,8 @@
 """The port's copies of the JAX package's host modules (``types``,
-``utils/misc``, ``preprocessing``, ``io``, ``native``) must stay the JAX
-files: the code below each module docstring is identical apart from the
-lines listed here, and ``native/fast_dlm.cpp`` is identical byte for byte.
+``utils/misc``, ``utils/testing``, ``preprocessing``, ``io``, ``native``)
+must stay the JAX files: the code below each module docstring is
+identical apart from the lines listed here, and ``native/fast_dlm.cpp`` is
+identical byte for byte.
 A change to one of the JAX host modules must be copied over.  Their results
 agree too: ``normalize_data`` gives the JAX package's matrix byte for byte in
 all four modes, and ``save_network`` / ``load_network`` round-trip a
@@ -24,6 +25,7 @@ ROOT = Path(__file__).resolve().parent.parent
 _ALLOWED = {
     "types.py": set(),
     "utils/misc.py": set(),
+    "utils/testing.py": set(),
     "preprocessing.py": set(),
     "io.py": set(),
     # the compiled parser goes into flashweave_tpu_torch/_build/

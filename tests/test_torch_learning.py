@@ -139,13 +139,11 @@ _ALLOWED = {
     "bnb.py": set(),
     "scheduler.py": {
         "import jax",
-        "self._multiproc = (engine.mesh is not None",
+        "from ..parallel.distributed import process_count, process_index",
         "and jax.process_count() > 1)",
+        "and process_count() > 1)",
         "if self._multiproc and jax.process_index() != 0:",
-        "self.verbose = False        # progress printing is rank 0's job",
-        "# single process: the port drives one device (multi-device is",
-        "# ROADMAP queue 1 item 9)",
-        "self._multiproc = False",
+        "if self._multiproc and process_index() != 0:",
     },
 }
 

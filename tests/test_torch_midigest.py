@@ -452,16 +452,19 @@ def test_turbo_digest_matches_jax(test, table, max_k, m, chunked,
 
 
 def test_turbo_template_cached(monkeypatch):
-    """The template's device tensors are built once for each m."""
+    """The template's device tensors are built once for each m and
+    device."""
     _, teng, _ = _engines("mi_nz", "uniform", 2, monkeypatch)
     Ts, cands = _windows(48, 4, 4, seed=0)
     tpl = _turbo_mxu_template(4, 2)
     first = teng.turbo_tests_finish(teng.turbo_tests_begin(4, Ts, cands,
                                                            ALPHA, tpl))
-    const = teng._turbo_dev_cache[4]
+    key = (4, torch.device("cpu"))
+    const = teng._turbo_dev_cache[key]
     again = teng.turbo_tests_finish(teng.turbo_tests_begin(4, Ts, cands,
                                                            ALPHA, tpl))
-    assert teng._turbo_dev_cache[4] is const and list(teng._turbo_dev_cache) == [4]
+    assert (teng._turbo_dev_cache[key] is const
+            and list(teng._turbo_dev_cache) == [key])
     for a, b in zip(first, again):
         np.testing.assert_array_equal(a, b)
 

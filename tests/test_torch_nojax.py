@@ -6,8 +6,12 @@ digest, fz_nz also through the continuous one, fz on both conditioning
 routes), saves and loads a network, and
 runs the univariate pass of a 10-level table through the default block
 function (K4's plain version) and the planes route (K3's, then
-``mi_planes_stats``), both through the default device extraction."""
+``mi_planes_stats``), both through the default device extraction.  A second
+interpreter imports ``flashweave_tpu_torch.parallel`` (distributed, mesh,
+scaling) and ``utils.testing`` the same way and runs the scaling harness on
+a CPU mesh."""
 
+import os
 import re
 import subprocess
 import sys
@@ -121,3 +125,44 @@ def test_no_jax_import_in_port_sources():
                      re.M)
     hits = [str(f) for f in files if pat.search(f.read_text())]
     assert not hits
+
+
+_PARALLEL = r"""
+import sys
+
+class _NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flashweave_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, _NoJax())
+
+import numpy as np
+from flashweave_tpu_torch.parallel import distributed, mesh, scaling
+from flashweave_tpu_torch.utils import testing
+
+assert not distributed.initialize_from_env(backend="gloo")
+assert distributed.process_count() == 1 and distributed.is_primary()
+m = mesh.get_mesh(devices=["cpu"] * 4)
+rng = np.random.default_rng(0)
+data = rng.integers(0, 3, (120, 24)).astype(float)
+data[:, 1] = data[:, 0]
+res = scaling.univar_scaling(data, "mi_nz", device_counts=(1, 4), repeats=1,
+                             device="cpu")
+assert len({r["n_significant"] for r in res.values()}) == 1
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flashweave_tpu"))
+assert not bad, bad
+print("PARALLEL_OK")
+"""
+
+
+def test_parallel_runs_with_jax_blocked():
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("FLASHWEAVE_")}
+    proc = subprocess.run([sys.executable, "-c", _PARALLEL], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120,
+                          env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PARALLEL_OK" in proc.stdout

@@ -6,9 +6,10 @@
 Runs the slice LGL of ``chip_smoke.py`` (max_k=3, multi_il, 2048 x 10,000 by
 default; a discrete table has 3 levels unless ``levels`` says otherwise,
 e.g. ``profile_slice.py mi 2048 10000 12`` for phase 6; fz_nz and fz run on
-log1p of the table, as phases 5 and 9 do; p = 65,536 takes bench.py's scale
-table, grouped by 8 from seed 0, as phases 8 and 10 do, so that
-``profile_slice.py fz 2048 65536`` profiles phase 10) once to warm up, then
+log1p of the table, as phases 5 and 9 do; p = 65,536 and p = 98,304 take
+bench.py's scale table, grouped by 8 from seed 0, as phases 8, 10 and 12 do,
+so that ``profile_slice.py fz 2048 65536`` profiles phase 10 and
+``profile_slice.py mi_nz 2048 98304`` phase 12a) once to warm up, then
 once under ``torch.profiler`` and prints the stage seconds, the card's busy
 share (CUDA kernel and copy time over wall time), the largest CUDA entries
 by device time, the device work of each window digest (the profiler ranges
@@ -75,7 +76,7 @@ def main() -> int:
     n, p = (int(a) for a in sys.argv[2:4]) if len(sys.argv) > 2 else (2048, 10_000)
     levels = int(sys.argv[4]) if len(sys.argv) > 4 else 3
     continuous = test_name.startswith("fz")
-    group, seed = (8, 0) if p == 65_536 else (5, 1)
+    group, seed = (8, 0) if p in (65_536, 98_304) else (5, 1)
     data = (fznz_table(n, p, group, seed) if continuous
             else synth_table(n, p, group, seed=seed, levels=levels))
     dev = torch.device("cuda", 0)

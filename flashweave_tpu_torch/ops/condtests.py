@@ -4,9 +4,11 @@ PyTorch counterpart of ``flashweave_tpu/ops/condtests.py`` (reference:
 src/tests.jl:184-276) for mi, mi_nz, fz_nz and fz.  The HITON search layer
 (``learning/hiton.py``, ``learning/scheduler.py``) ships flat batches:
 
-- mi / mi_nz: (X, Y, Zs) descriptors become stratified contingency tables
-  (``contingency.cond_ctab_batch``), then signed MI, adjusted df and the
-  power check on the device;
+- mi / mi_nz: (X, Y, Zs) descriptors become stratified contingency tables,
+  then signed MI, adjusted df and the power check on the device: K5
+  (``kernels.mi_cond_stats``, one launch a call) where the engine's ``k5``
+  gate holds, else :func:`_mi_cond_kernel` (``contingency.cond_ctab_batch``,
+  ``statfuns.mi_stats``) in chunks of tests;
 - fz_nz: (T, candidate) pairs with their variable lists [T, cand, Zs...]
   become correlation submatrices over the rows where T and the candidate are
   both nonzero (:func:`_masked_cor_kernel`, reference src/statfuns.jl:138-155
@@ -88,6 +90,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import kernels
 from . import statfuns as sf
 from .contingency import cond_ctab_batch
 from .univariate import _fz_center, cor_matrix
@@ -97,8 +100,9 @@ from ..types import TestResult
 # running count of conditional CI tests dispatched (bench/diagnostics)
 N_TESTS_DISPATCHED = 0
 
-# elements of one (n, B) descriptor-gather tensor per device call: bounds
-# the temporaries of a chunk at a few hundred MB
+# elements of one (n, B) descriptor-gather tensor per device call of the
+# plain route (:func:`_mi_cond_kernel`): bounds the temporaries of a chunk at
+# a few hundred MB.  K5 builds no such tensor and takes a call in one launch
 CHUNK_ELEMS = 1 << 23
 
 # max elements in flight for the gathered (rows, B, m) masked-cor tensor
@@ -493,6 +497,15 @@ class CondTestEngine:
     runs it under float64.  A failure in any device digest raises: nothing falls back to
     the host digest.
 
+    ``k5``, decided from shapes here: the per-test results of mi / mi_nz
+    (``mi_tests_begin``, the window digest's tests, a mesh's shards) come
+    from K5 (``kernels.mi_cond_stats``: one launch a call, the descriptors
+    uploaded as one int32 array) where no strata are compacted
+    (S_hist == S), the table is int8 and a test's table fits K5's shared
+    memory (``kernels.k5_fits``); otherwise from :func:`_mi_cond_kernel` in
+    chunks of ``CHUNK_ELEMS`` (compacted strata, int16 tables).  On the CPU
+    K5's wrapper runs its plain version, the same chunks.
+
     ``mesh`` (a :class:`..parallel.mesh.Mesh`): ``device`` is the mesh's
     primary device, the table (and fz's correlation state) goes once onto
     each distinct device of the mesh (``tables``: one a local shard), and
@@ -517,6 +530,7 @@ class CondTestEngine:
         self.n, self.p = self.data_np.shape
         self.dev_digest = False
         self.turbo_mxu = False
+        self.k5 = False
         self.cor_device = False
         self.cor_onfly = False
         self.cont_dev = False
@@ -563,6 +577,9 @@ class CondTestEngine:
         cap = self.n if hps <= 0 else min(self.n, int(self.n // hps) + 1)
         self.S_hist = min(self.S, max(int(cap), 1))
         self.nzu = bool(self.nz and self.L == 3 and (self.max_vals > 1).all())
+        self.nz_mode = 2 if self.nzu else int(self.nz)
+        self.k5 = (self.S == self.S_hist and state.data.dtype == torch.int8
+                   and kernels.k5_fits(self.L, max_k, self.nz_mode))
         # the mi / mi_nz device digests, where a test's histogram is small
         small = max_k > 0 and (self.L - 1) ** 2 * self.S_hist <= DIGEST_CELLS
         if small:
@@ -607,10 +624,34 @@ class CondTestEngine:
             return parts[0]
         return gather(self.mesh, parts, dim=dim).narrow(dim, 0, B)
 
+    def _mi_parts(self, X, Y, Zs, kvec, shard=0):
+        """(stat, df, n_obs, suff) of B conditional MI tests on the device
+        of local ``shard``: one tuple from K5 where ``k5`` holds (one launch,
+        the descriptors uploaded once), else one for each chunk of
+        :meth:`_mi_chunks`."""
+        if not self.k5 or not len(X):
+            return self._mi_chunks(X, Y, Zs, kvec, shard)
+        st = self.tables[shard]
+        desc = self._descriptors(X, Y, Zs, kvec, st.device)
+        return [kernels.mi_cond_stats(st, desc, float(self.hps), self.max_k,
+                                      self.nz_mode)]
+
+    def _descriptors(self, X, Y, Zs, kvec, device):
+        """K5's (B, 3 + max_k) int32 rows [X, Y, k, Z...] on ``device``: one
+        host-to-device copy, from pinned memory to a card (the caching host
+        allocator keeps the buffer until the copy has run)."""
+        B = len(X)
+        host = torch.empty((B, 3 + self.max_k), dtype=torch.int32,
+                           pin_memory=device.type == "cuda")
+        a = host.numpy()
+        a[:, 0], a[:, 1], a[:, 2] = X, Y, kvec
+        a[:, 3:] = np.asarray(Zs).reshape(B, self.max_k)
+        return host.to(device, non_blocking=True)
+
     def _mi_chunks(self, X, Y, Zs, kvec, shard=0):
         """(stat, df, n_obs, suff) of B conditional MI tests on the device
-        of local ``shard``, a tuple for each chunk of tests whose (n, B)
-        gathers stay within ``CHUNK_ELEMS``."""
+        of local ``shard`` through :func:`_mi_cond_kernel`, a tuple for each
+        chunk of tests whose (n, B) gathers stay within ``CHUNK_ELEMS``."""
         B = len(X)
         chunk = max(1, CHUNK_ELEMS // max(self.n, 1))
         st = self.tables[shard]
@@ -627,11 +668,11 @@ class CondTestEngine:
 
     def _mi_sharded(self, X, Y, Zs, kvec):
         """(stat, df, n_obs, suff) of B tests on a mesh: each shard's piece
-        through :meth:`_mi_chunks` on its own device, stacked (4, B) float64
+        through :meth:`_mi_parts` on its own device, stacked (4, B) float64
         and gathered onto the primary device."""
         B = len(X)
         parts = [torch.stack([torch.cat(t).to(torch.float64) for t in
-                              zip(*self._mi_chunks(*arrs, shard=i))])
+                              zip(*self._mi_parts(*arrs, shard=i))])
                  for i, arrs in self._shards([X, Y, Zs, kvec], B)]
         return self._gather(parts, B, dim=1)
 
@@ -645,7 +686,7 @@ class CondTestEngine:
             return [self._mi_sharded(X, Y, Zs, kvec)]
         return [torch.stack([stat, df.to(torch.float64), n_obs,
                              suff.to(torch.float64)])
-                for stat, df, n_obs, suff in self._mi_chunks(X, Y, Zs, kvec)]
+                for stat, df, n_obs, suff in self._mi_parts(X, Y, Zs, kvec)]
 
     def mi_tests_finish_lazy(self, handle):
         """Wait for a mi_tests_begin handle WITHOUT computing p-values;
@@ -666,16 +707,16 @@ class CondTestEngine:
         """Enqueue B conditional MI tests and their per-candidate digest on
         the device (counts: the tests of each candidate, in contiguous
         segments of the batch) and return a handle for
-        :meth:`mi_tests_finish_digest` without waiting.  The tests go in
-        :meth:`mi_tests_begin`'s chunks; :func:`_mi_digest` reduces the
-        whole round.  The work runs under the profiler range ``mi_digest``,
+        :meth:`mi_tests_finish_digest` without waiting.  The tests go as in
+        :meth:`mi_tests_begin` (K5 or chunks); :func:`_mi_digest` reduces
+        the whole round.  The work runs under the profiler range ``mi_digest``,
         which ``profile_slice.py`` reads."""
         global N_TESTS_DISPATCHED
         B = len(X)
         N_TESTS_DISPATCHED += B
         with torch.profiler.record_function("mi_digest"):
             if self.mesh is None:
-                parts = self._mi_chunks(X, Y, Zs, kvec)
+                parts = self._mi_parts(X, Y, Zs, kvec)
                 stat, df, n_obs, suff = (torch.cat(t) for t in zip(*parts))
             else:
                 stat, df, n_obs, suff = self._mi_sharded(X, Y, Zs, kvec)

@@ -19,6 +19,14 @@
   :func:`mi_univar_stats_planes_ref` its plain version (indicator planes, one
   product, the level-0 cells rebuilt from the margins).  K1, K3 and K4 run
   the pipelined int8 tile loop ``csrc/int8_indicator_pipe.cuh``.
+- K5, the conditional G-test (``csrc/mi_cond_stats.cu``), replaces the JAX
+  package's conditional test function ``flashweave_tpu/ops/condtests.py:
+  _mi_cond_kernel`` with its histogram ``ops/contingency.py:cond_ctab_batch``
+  (TPU branch ``_packed_hist``): XLA functions there, not Pallas kernels.
+  :func:`mi_cond_stats` is its wrapper (tables whose strata are not
+  compacted and whose tests fit ``K5_TEST_BYTES``, :func:`k5_fits`),
+  :func:`mi_cond_stats_ref` its plain version (the engine's chunks of
+  ``condtests._mi_cond_kernel``).
 - On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
   tensor it runs the plain version.  Each counts its launches in
   ``<wrapper>.launches``; :func:`launch_counts` reports them all.
@@ -61,6 +69,10 @@ PIPE_MAX_SAMPLES = 1 << 24
 K4_TILE = (32, 64)
 # K4's slab of int32 joint counts in device memory holds at most this much
 K4_SCRATCH_BYTES = 1 << 30
+# K5's shared memory a test: its histogram, row and column margins and
+# strata, (Lr + 1)^2 * L^max_k int32 (csrc/mi_cond_stats.cu's TEST_INTS):
+# 108 cells at the nz-uniform headline, 3,125 at L = 5, max_k = 3
+K5_TEST_BYTES = 32 << 10
 
 
 @dataclass
@@ -152,6 +164,10 @@ def load_library():
         lib.fw_mi_pair_ctabs.argtypes = [
             ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr]
         lib.fw_mi_pair_ctabs.restype = i32
+        lib.fw_mi_cond_stats.argtypes = [
+            ptr, i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, f64, ptr, ptr,
+            ptr, ptr, ptr]
+        lib.fw_mi_cond_stats.restype = i32
         lib.fw_cuda_error_string.argtypes = [i32]
         lib.fw_cuda_error_string.restype = ctypes.c_char_p
         _library = (lib, info)
@@ -512,8 +528,102 @@ def fz_nz_stats(data, start, tile, y_start=0, y_len=None):
 
 fz_nz_stats.launches = 0
 
+# ---------------------------------------------------------------------------
+# K5: the conditional G-test
+# ---------------------------------------------------------------------------
+
+def k5_fits(L: int, max_k: int, nz: int) -> bool:
+    """Whether one test's table at L levels and max_k fits K5's shared
+    memory: (Lr + 1)^2 * L^max_k int32 within ``K5_TEST_BYTES``, Lr = L - 1
+    under nz-uniform (``nz == 2``), L otherwise."""
+    Lr = L - 1 if nz == 2 else L
+    return 4 * (Lr + 1) ** 2 * L ** max_k <= K5_TEST_BYTES
+
+
+def mi_cond_stats_ref(st, desc, hps, max_k, nz):
+    """Plain PyTorch version of K5: the engine's route before it, the B
+    tests in chunks of ``condtests.CHUNK_ELEMS // n`` through
+    ``condtests._mi_cond_kernel`` (row mask, ``cond_ctab_batch``,
+    ``statfuns.mi_stats``, occupied strata, power check) with S = L^max_k.
+    Arguments and results as :func:`mi_cond_stats`."""
+    from . import condtests as ct
+
+    n, B = st.data.shape[0], desc.shape[0]
+    chunk = max(1, ct.CHUNK_ELEMS // max(n, 1))
+    d = desc.long()
+    parts = [ct._mi_cond_kernel(
+        st.data, st.levels, st.max_vals, d[s:s + chunk, 0],
+        d[s:s + chunk, 1], d[s:s + chunk, 3:], d[s:s + chunk, 2], float(hps),
+        max_k, st.L, st.L ** max_k, nz != 0, nz == 2)
+        for s in range(0, B, chunk)]
+    if not parts:
+        return _cond_outputs(0, st.data.device)
+    return tuple(torch.cat(t) for t in zip(*parts))
+
+
+def _cond_outputs(B, dev):
+    """Empty (stat, df, n_obs, suff) of B conditional tests."""
+    return tuple(torch.empty(B, dtype=dt, device=dev)
+                 for dt in (torch.float64, torch.int64, torch.float64,
+                            torch.bool))
+
+
+def mi_cond_stats(st, desc, hps, max_k, nz):
+    """The conditional mi / mi_nz G-test of B (X, Y | Z) tests.
+
+    Args:
+      st: the table as a ``state.DiscreteState`` (K5 reads its (p, n)
+        ``dataT``, the plain version its (n, p) ``data``), with ``levels``,
+        ``max_vals`` and L.
+      desc: (B, 3 + max_k) int32 rows [X, Y, k, Z_0 .. Z_{max_k-1}]; Zs past
+        k are not read.
+      nz: 0 plain, 1 per-variable nz offsets, 2 nz-uniform (L == 3, every
+        max_val > 1: the sliced (L-1)^2 table).
+    Returns (stat float64, df int64, n_obs float64, suff bool), each (B,),
+    stratified over all S = L^max_k z-codes (no compaction).  CUDA tensors
+    run K5 (an int8 table whose tests fit :func:`k5_fits`), one launch for
+    the batch; CPU tensors run the plain version."""
+    dataT = st.dataT
+    if dataT.device.type == "cpu":
+        return mi_cond_stats_ref(st, desc, hps, max_k, nz)
+    if dataT.device.type != "cuda":
+        raise ValueError(f"unsupported device {dataT.device}")
+    p, n = dataT.shape
+    L = st.L
+    if dataT.dtype != torch.int8 or not dataT.is_contiguous() or n == 0:
+        raise ValueError("K5 needs dataT as a contiguous int8 (p, n) tensor")
+    if nz not in (0, 1, 2) or (nz == 2 and L != 3):
+        raise ValueError(f"invalid nz={nz} for L={L}")
+    if not k5_fits(L, max_k, nz):
+        raise ValueError(f"K5: a test at L={L}, max_k={max_k} exceeds "
+                         f"{K5_TEST_BYTES} bytes of shared memory")
+    for name, t, shape in (("levels", st.levels, (p,)),
+                           ("max_vals", st.max_vals, (p,)),
+                           ("desc", desc, (desc.shape[0], 3 + max_k))):
+        if (t.dtype != torch.int32 or tuple(t.shape) != shape
+                or not t.is_contiguous() or t.device != dataT.device):
+            raise ValueError(f"{name} must be a contiguous int32 {shape} "
+                             f"tensor on {dataT.device}")
+    B = desc.shape[0]
+    outs = _cond_outputs(B, dataT.device)
+    if B == 0:
+        return outs
+    lib, _ = load_library()
+    with torch.cuda.device(dataT.device):
+        stream = torch.cuda.current_stream(dataT.device).cuda_stream
+        err = lib.fw_mi_cond_stats(
+            dataT.data_ptr(), n, p, st.levels.data_ptr(),
+            st.max_vals.data_ptr(), desc.data_ptr(), B, max_k, L, int(nz),
+            float(hps), *(t.data_ptr() for t in outs), stream)
+    _check_cuda_error(lib, err, "mi_cond_stats launch")
+    mi_cond_stats.launches += 1
+    return outs
+
+
+mi_cond_stats.launches = 0
+
 _WRAPPERS = (mi_univar_stats, fz_nz_stats, pair_ctab_planes,
-             mi_univar_stats_planes)
+             mi_univar_stats_planes, mi_cond_stats)
 
 
 def reset_launch_counts() -> None:

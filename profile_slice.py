@@ -12,7 +12,9 @@ so that ``profile_slice.py fz 2048 65536`` profiles phase 10 and
 ``profile_slice.py mi_nz 2048 98304`` phase 12a) once to warm up, then
 once under ``torch.profiler`` and prints the stage seconds, the card's busy
 share (CUDA kernel and copy time over wall time), the largest CUDA entries
-by device time, the device work of each window digest (the profiler ranges
+by device time, each hand kernel's device ms and launches (K5,
+``mi_cond_stats``, the conditional G-test of the mi window tests, beside
+K1-K4), the device work of each window digest (the profiler ranges
 ``cont_digest``, ``mi_digest`` and ``turbo_digest``: calls, device ms,
 launches, largest kernels) and the search layer's window counts
 (``hiton.WINDOW_STATS``: speculative windows by kind; turbo windows tried,
@@ -34,6 +36,29 @@ import torch
 
 
 DIGESTS = ("cont_digest", "mi_digest", "turbo_digest")
+
+
+# each wrapper of ops/kernels.py and the name its kernels carry
+KERNEL_NAMES = {"mi_univar_stats": "mi_univar_stats_kernel",
+                "fz_nz_stats": "fz_nz_stats_kernel",
+                "pair_ctab_planes": "mi_pair_ctabs_kernel",
+                "mi_univar_stats_planes": "mi_univar_stats_planes_",
+                "mi_cond_stats": "mi_cond_stats_kernel"}
+
+
+def hand_kernels(cuda, launches):
+    """Device ms and profiler launches of each hand kernel of the library
+    (``KERNEL_NAMES``; K4's count and epilogue kernels together) beside the
+    wrapper's own launch count ``launches`` (one K4 call may launch several
+    sub-blocks)."""
+    out = {}
+    for name, calls in launches.items():
+        hits = [e for e in cuda if KERNEL_NAMES[name] in e.key]
+        out[name] = {"wrapper_launches": calls,
+                     "kernel_launches": sum(e.count for e in hits),
+                     "device_ms": sum(e.self_device_time_total
+                                      for e in hits) / 1e3}
+    return out
 
 
 def range_kernels(events, name, top=12):
@@ -68,6 +93,7 @@ def main() -> int:
     from chip_smoke import card_line, fznz_table, synth_table
     from flashweave_tpu_torch.learning import hiton
     from flashweave_tpu_torch.learning.lgl import LGL
+    from flashweave_tpu_torch.ops import kernels as K
     from flashweave_tpu_torch.ops.univariate import pw_univar_neighbors
     from flashweave_tpu_torch.state import from_numpy_continuous, from_numpy_state
     from flashweave_tpu_torch.utils.timing import StageTimer
@@ -87,9 +113,11 @@ def main() -> int:
     timer = StageTimer(dev)
     hiton.WINDOW_STATS = windows = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        K.reset_launch_counts()
         t0 = time.perf_counter()
         LGL(data, stage_timer=timer, **kw)
         wall = time.perf_counter() - t0
+        launches = K.launch_counts()
     hiton.WINDOW_STATS = None
     # device-side entries only (kernels and copies): an aten:: op also
     # carries the device time of the kernels it launched, and a profiler
@@ -106,6 +134,7 @@ def main() -> int:
         "device_busy_share": busy / wall,
         "top_device": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
                        for e in top],
+        "hand_kernels": hand_kernels(cuda, launches),
         "windows": windows,
         **{name: range_kernels(prof.events(), name) for name in DIGESTS}}),
         flush=True)

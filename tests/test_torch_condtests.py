@@ -93,13 +93,26 @@ def test_engine_matches_jax(test_name, kind, n, p):
 def test_chunked_begin_equals_single_chunk(monkeypatch):
     data = _table("mixed", 200, 20, seed=1)
     eng = tct.CondTestEngine(data, "mi_nz", 3, hps=5, device="cpu")
+    assert eng.k5
     X, Y, Zs, kvec = _batch(20, 250, 3, seed=2)
     whole = eng.mi_tests_raw(X, Y, Zs, kvec)
     before = tct.N_TESTS_DISPATCHED
     monkeypatch.setattr(tct, "CHUNK_ELEMS", 200 * 64)     # 64 tests a chunk
+    calls = []
+    kernel = tct._mi_cond_kernel
+    monkeypatch.setattr(tct, "_mi_cond_kernel",
+                        lambda *a: calls.append(len(a[3])) or kernel(*a))
+    # K5's route: one handle a call; on the CPU its plain version runs the
+    # chunks
+    handle = eng.mi_tests_begin(X, Y, Zs, kvec)
+    assert len(handle) == 1 and calls == [64, 64, 64, 58]
+    for a, b in zip(eng.mi_tests_finish(handle), whole):
+        np.testing.assert_array_equal(a, b)
+    # the plain route (compacted strata, int16 tables): a handle a chunk
+    eng.k5 = False
     handle = eng.mi_tests_begin(X, Y, Zs, kvec)
     assert len(handle) == 4
-    assert tct.N_TESTS_DISPATCHED == before + 250
+    assert tct.N_TESTS_DISPATCHED == before + 500
     for a, b in zip(eng.mi_tests_finish(handle), whole):
         np.testing.assert_array_equal(a, b)
     res = eng.mi_tests(X[:3], Y[:3], Zs[:3], kvec[:3])

@@ -127,7 +127,8 @@ def test_cpu_wrapper_runs_plain_version_without_counting():
         assert torch.equal(g, w)
     assert K.launch_counts() == {"mi_univar_stats": 0, "fz_nz_stats": 0,
                                  "pair_ctab_planes": 0,
-                                 "mi_univar_stats_planes": 0}
+                                 "mi_univar_stats_planes": 0,
+                                 "mi_cond_stats": 0}
 
 
 def test_wrapper_rejects_other_devices():
@@ -297,7 +298,8 @@ def test_fz_nz_cpu_wrapper_runs_plain_version_without_counting():
         assert torch.equal(g.nan_to_num(7.0), w.nan_to_num(7.0))
     assert K.launch_counts() == {"mi_univar_stats": 0, "fz_nz_stats": 0,
                                  "pair_ctab_planes": 0,
-                                 "mi_univar_stats_planes": 0}
+                                 "mi_univar_stats_planes": 0,
+                                 "mi_cond_stats": 0}
 
 
 def test_fz_nz_wrapper_rejects_other_devices():

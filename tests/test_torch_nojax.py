@@ -3,7 +3,9 @@ fresh interpreter that refuses to import jax, jaxlib or ``flashweave_tpu``
 imports ``flashweave_tpu_torch``, normalizes a table, learns mi_nz,
 fz_nz and fz networks on the CPU (mi_nz also through the device window
 digest, fz_nz also through the continuous one, fz on both conditioning
-routes), saves and loads a network, and
+routes), runs a batch of mi_nz tests through K5's route (its wrapper, on
+the CPU the plain version) against the chunked route, saves and loads a
+network, and
 runs the univariate pass of a 10-level table through the default block
 function (K4's plain version) and the planes route (K3's, then
 ``mi_planes_stats``), both through the default device extraction.  A second
@@ -64,6 +66,18 @@ condtests.FORCE_DEV_DIGEST = None
 assert [e[:2] for e in sorted(fwt.graph(res).edges())] == [
     e[:2] for e in nets[False]]
 print("NET dev_digest", fwt.graph(res).n_edges())
+# mi_nz conditional tests through K5's route against the chunked route
+eng = condtests.CondTestEngine(data, "mi_nz", 3, hps=5, device="cpu")
+assert eng.k5
+B = 64
+X, Y = rng.integers(0, 15, B), rng.integers(15, 30, B)
+Zs, kv = rng.integers(0, 30, (B, 3)), rng.integers(0, 4, B)
+k5 = eng.mi_tests_raw(X, Y, Zs, kv)
+eng.k5 = False
+for a, b in zip(k5, eng.mi_tests_raw(X, Y, Zs, kv)):
+    assert np.array_equal(a, b)
+assert k5[3].any()
+print("K5 route", int(k5[3].sum()))
 # fz_nz through the continuous window digest on the device
 condtests.FORCE_CONT_DEV = True
 res = fwt.learn_network(data, sensitive=True, heterogeneous=True, max_k=3,
@@ -114,6 +128,7 @@ def test_port_runs_with_jax_blocked():
     assert "NET fz" in proc.stdout
     assert "NET cont_dev" in proc.stdout
     assert "NET dev_digest" in proc.stdout
+    assert "K5 route" in proc.stdout
     assert "PLANES" in proc.stdout
 
 

@@ -229,7 +229,8 @@ def test_cpu_wrappers_run_plain_versions_without_counting():
                        K.pair_ctab_planes_ref(st.dataT, 25, 125, 10, 100, 150))
     assert set(K.launch_counts()) == {"mi_univar_stats", "fz_nz_stats",
                                       "pair_ctab_planes",
-                                      "mi_univar_stats_planes"}
+                                      "mi_univar_stats_planes",
+                                      "mi_cond_stats"}
     assert not any(K.launch_counts().values())
 
 

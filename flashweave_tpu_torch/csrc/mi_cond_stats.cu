@@ -40,14 +40,14 @@
 //   16 rows of each column as one 16-byte load, neighbouring lanes on
 //   neighbouring rows, and builds the 16 z-codes in registers; otherwise
 //   each lane reads single bytes, a warp 32 neighbouring rows;
-// - the epilogue runs in float64 over the warp: row and column margins a
-//   (level, stratum), then the occupied strata, n_obs and the adjusted df a
-//   stratum, then the MI terms a cell, reduced with shuffles; the term is
-//   the plain version's log((m_k c) / (m_i m_j)) c and the flip its
-//   mi_neg (n_neg / n) > mi_pos (n_pos / n), with explicitly rounded
-//   products and sums (__dmul_rn, __dadd_rn), so no multiply-add is fused
-//   where the plain version rounds twice; only the order of the sums
-//   differs;
+// - the epilogue runs in float64 over the warp (csrc/mi_cond_epilogue.cuh,
+//   which K7 shares): row and column margins a (level, stratum), then the
+//   occupied strata, n_obs and the adjusted df a stratum, then the MI terms
+//   a cell, reduced with shuffles; the term is the plain version's
+//   log((m_k c) / (m_i m_j)) c and the flip its mi_neg (n_neg / n) >
+//   mi_pos (n_pos / n), with explicitly rounded products and sums
+//   (__dmul_rn, __dadd_rn), so no multiply-add is fused where the plain
+//   version rounds twice; only the order of the sums differs;
 // - one launch serves a whole call of the engine, so its descriptors go up
 //   as one int32 array (no 4,096-test chunks as the plain version's
 //   temporaries need).
@@ -55,6 +55,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mi_cond_epilogue.cuh"
 #include "smem_limit.cuh"
 
 namespace {
@@ -65,7 +66,6 @@ constexpr int WARPS = 4;              // tests a block, one warp each
 // budget ops/kernels.py:K5_TEST_BYTES states
 constexpr int TEST_INTS = 8192;
 constexpr int MAX_SMEM_BYTES = WARPS * TEST_INTS * 4;
-constexpr unsigned FULL = 0xffffffffu;
 
 struct Batch {
   const int8_t* dataT;     // (p, n) int8, contiguous
@@ -102,11 +102,8 @@ mi_cond_stats_kernel(Batch a) {
   const int Lr = L - o;
   int S = 1;
   for (int j = 0; j < a.max_k; ++j) S *= L;
-  const int LL = Lr * Lr, LS = Lr * S, C = LL * S;
-  int* hist = smem + warp * (C + 2 * LS + S);
-  int* mi = hist + C;                          // (a, s) at a + Lr s
-  int* mj = mi + LS;                           // (b, s) at b + Lr s
-  int* mk = mj + LS;                           // s
+  const int LL = Lr * Lr, C = LL * S;
+  int* hist = smem + warp * (Lr + 1) * (Lr + 1) * S;
   for (int i = lane; i < C; i += 32) hist[i] = 0;
 
   const int* d = a.desc + t * (3 + a.max_k);
@@ -154,75 +151,9 @@ mi_cond_stats_kernel(Batch a) {
   }
   __syncwarp();
 
-  // margins: row a of stratum s (over b) and column b of stratum s (over a)
-  for (int i = lane; i < LS; i += 32) {
-    const int s = i / Lr, v = i - s * Lr;
-    const int* h = hist + LL * s;
-    int row = 0, col = 0;
-    for (int u = 0; u < Lr; ++u) {
-      row += h[v + Lr * u];
-      col += h[u + Lr * v];
-    }
-    mi[i] = row;
-    mj[i] = col;
-  }
-  __syncwarp();
-
-  // a stratum's count, occupancy and adjusted df (max(alx,1)-1)(max(aly,1)-1)
-  int df = 0, occupied = 0, n_obs = 0;
-  for (int s = lane; s < S; s += 32) {
-    int m = 0, alx = 0, aly = 0;
-    for (int v = 0; v < Lr; ++v) {
-      m += mi[v + Lr * s];
-      alx += mi[v + Lr * s] != 0;
-      aly += mj[v + Lr * s] != 0;
-    }
-    mk[s] = m;
-    df += (max(alx, 1) - 1) * (max(aly, 1) - 1);
-    occupied += m > 0;
-    n_obs += m;
-  }
-  __syncwarp();
-
-  // the MI terms of the occupied cells, on and off the diagonal
-  double mi_pos = 0.0, mi_neg = 0.0;
-  int n_pos = 0;
-  for (int c = lane; c < C; c += 32) {
-    const int cnt = hist[c];
-    if (cnt == 0) continue;           // then no margin of the cell is 0
-    const int s = c / LL, r = c - s * LL, b = r / Lr, v = r - b * Lr;
-    const double cd = (double)cnt;
-    const double ratio = __ddiv_rn(__dmul_rn((double)mk[s], cd),
-                                   __dmul_rn((double)mi[v + Lr * s],
-                                             (double)mj[b + Lr * s]));
-    const double term = __dmul_rn(log(ratio), cd);
-    if (v - ox == b - oy) {
-      mi_pos = __dadd_rn(mi_pos, term);
-      n_pos += cnt;
-    } else {
-      mi_neg = __dadd_rn(mi_neg, term);
-    }
-  }
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) {
-    mi_pos = __dadd_rn(mi_pos, __shfl_xor_sync(FULL, mi_pos, m));
-    mi_neg = __dadd_rn(mi_neg, __shfl_xor_sync(FULL, mi_neg, m));
-    n_pos += __shfl_xor_sync(FULL, n_pos, m);
-    n_obs += __shfl_xor_sync(FULL, n_obs, m);
-    df += __shfl_xor_sync(FULL, df, m);
-    occupied += __shfl_xor_sync(FULL, occupied, m);
-  }
-  if (lane != 0) return;
-
-  const double nd = (double)n_obs, np_ = (double)n_pos;
-  const double nn = nd - np_;
-  const double safe_n = nd > 0.0 ? nd : 1.0;
-  double stat = __ddiv_rn(__dadd_rn(mi_pos, mi_neg), safe_n);
-  if (__dmul_rn(mi_neg, __ddiv_rn(nn, safe_n)) >
-      __dmul_rn(mi_pos, __ddiv_rn(np_, safe_n)))
-    stat = -stat;
-  // power check n_obs / (lx ly levels_z) > hps, lx and ly the sliced
-  // table's levels under nz, the variables' own otherwise
+  // the float64 epilogue (csrc/mi_cond_epilogue.cuh); the power check's
+  // lx and ly are the sliced table's levels under nz, the variables' own
+  // otherwise
   double lx, ly;
   if (a.nz) {
     lx = (double)(L - (a.nz == 2 ? 1 : ox));
@@ -231,12 +162,13 @@ mi_cond_stats_kernel(Batch a) {
     lx = (double)a.levels[X];
     ly = (double)a.levels[Y];
   }
-  const double cells = __dmul_rn(__dmul_rn(lx, ly), (double)occupied);
-  const bool ok = cells > 0.0 ? __ddiv_rn(nd, cells) > a.hps : true;
-  a.stat[t] = ok ? stat : 0.0;
-  a.df[t] = ok ? (long long)df : 0;
-  a.nobs[t] = nd;
-  a.suff[t] = ok;
+  const fw_cond::CondResult res =
+      fw_cond::cond_epilogue(hist, Lr, S, ox, oy, lx, ly, a.hps, lane);
+  if (lane != 0) return;
+  a.stat[t] = res.stat;
+  a.df[t] = res.df;
+  a.nobs[t] = res.n_obs;
+  a.suff[t] = res.suff;
 }
 
 }  // namespace

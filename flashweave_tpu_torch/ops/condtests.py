@@ -41,18 +41,21 @@ back one statistic a test; its p-values are scipy's on the host.
 The mi / mi_nz windows have two device digests where (L-1)^2 * S <= 128
 (3-level nz tables and 2-level tables at max_k = 3):
 
-- ``dev_digest`` (:meth:`CondTestEngine.mi_tests_begin_digest`,
-  :func:`_mi_digest`, the JAX package's ``_mi_cond_digest_scan_fn``): the
-  round's tests through :func:`_mi_cond_kernel`, then the float64 log-p and
-  the per-candidate decisions on the device; on by default on CUDA, off on
-  the CPU, where the scheduler digests the per-test results on the host
+- ``dev_digest`` (:meth:`CondTestEngine.mi_tests_begin_digest`, the JAX
+  package's ``_mi_cond_digest_scan_fn``): the round's tests through K5 (or
+  :func:`_mi_cond_kernel`), then the float64 log-p and the per-candidate
+  decisions on the device, through K6 (``kernels.mi_window_digest``, whose
+  plain version is :func:`_mi_digest`); on by default on CUDA, off on the
+  CPU, where the scheduler digests the per-test results on the host
   (``scheduler._scan_digest``);
-- ``turbo_mxu`` (:meth:`CondTestEngine.turbo_tests_begin`,
-  :func:`_turbo_pair_stats`, the JAX package's ``_turbo_digest_fn``): a
-  full-target window's (candidate, subset) joint tables from one batched
-  product of 0/1 level-indicator planes, the G-tests a pair, then each
-  slot's tests through :func:`_mi_digest`; on by default wherever its gate
-  holds.
+- ``turbo_mxu`` (:meth:`CondTestEngine.turbo_tests_begin`, the JAX
+  package's ``_turbo_digest_fn``): every distinct (candidate, subset)
+  pair's G-test of a full-target window, then each slot's tests through
+  their pairs' log p and the same reduction, in one K7 launch
+  (``kernels.mi_turbo_digest``) where ``k7`` holds; its plain version
+  builds the pairs' joint tables from one batched product of 0/1
+  level-indicator planes (:func:`_turbo_pair_stats`) and digests through
+  :func:`_mi_digest`; on by default wherever its gate holds.
 
 All three device digests reduce per candidate through
 :func:`_digest_reduce` and return (3, NC) numbers, copied to the host once
@@ -464,6 +467,16 @@ def _turbo_pair_stats(data, levels, maxv, Tw, Cw, memb, klen, hps, L, S, nz,
     return tuple(t.reshape(Wc, m * U) for t in (stat, df, n_obs, suff))
 
 
+def _turbo_pairs(jb, ub, U):
+    """The distinct (candidate, subset) pairs of a turbo template's tests
+    (``hiton._turbo_mxu_template``'s ``jb`` and ``ub``), ordered by
+    candidate, then subset: (pj, pu, tpair), each test's pair
+    pj[tpair] * U + pu[tpair] == jb * U + ub."""
+    pid = np.asarray(jb, np.int64) * U + np.asarray(ub, np.int64)
+    uniq, tpair = np.unique(pid, return_inverse=True)
+    return uniq // U, uniq % U, tpair.reshape(-1)
+
+
 class CondTestEngine:
     """Holds the device-resident table and evaluates flat batches of
     conditional tests, returning reference-semantics results (host float64
@@ -495,7 +508,12 @@ class CondTestEngine:
     windows through :meth:`turbo_tests_begin` / :meth:`turbo_tests_finish`,
     on by default on every device (``FORCE_TURBO_MXU``), as the JAX package
     runs it under float64.  A failure in any device digest raises: nothing falls back to
-    the host digest.
+    the host digest.  The window digest's log p and reduction run K6
+    (``kernels.mi_window_digest``) on the card; ``k7`` (``turbo_mxu`` and
+    ``k5``), decided from shapes here, sends the turbo windows through K7
+    (``kernels.mi_turbo_digest``), which stages a window's columns in
+    shared memory up to ``k7_stage_m`` candidates at this n; on the CPU both
+    wrappers run their plain versions.
 
     ``k5``, decided from shapes here: the per-test results of mi / mi_nz
     (``mi_tests_begin``, the window digest's tests, a mesh's shards) come
@@ -531,6 +549,8 @@ class CondTestEngine:
         self.dev_digest = False
         self.turbo_mxu = False
         self.k5 = False
+        self.k7 = False
+        self.k7_stage_m = 0
         self.cor_device = False
         self.cor_onfly = False
         self.cont_dev = False
@@ -589,6 +609,13 @@ class CondTestEngine:
         if small and self.S == self.S_hist:
             self.turbo_mxu = (True if FORCE_TURBO_MXU is None
                               else bool(FORCE_TURBO_MXU))
+        # K7 for the turbo windows, and the largest candidate count whose
+        # windows it stages in shared memory at this n
+        self.k7 = self.turbo_mxu and self.k5
+        self.k7_stage_m = max(
+            (m for m in range(2, 65) if kernels.k7_staged(
+                self.n, m, max_k, self.L, self.nz_mode)),
+            default=0) if self.k7 else 0
         self._turbo_dev_cache = {}
 
     def _replicate(self, x):
@@ -708,22 +735,25 @@ class CondTestEngine:
         the device (counts: the tests of each candidate, in contiguous
         segments of the batch) and return a handle for
         :meth:`mi_tests_finish_digest` without waiting.  The tests go as in
-        :meth:`mi_tests_begin` (K5 or chunks); :func:`_mi_digest` reduces
-        the whole round.  The work runs under the profiler range ``mi_digest``,
-        which ``profile_slice.py`` reads."""
+        :meth:`mi_tests_begin` (K5 or chunks); the round's log p and
+        per-candidate reduction go through ``kernels.mi_window_digest``: K6,
+        one launch, on the card, the plain :func:`_mi_digest` on the CPU.
+        The work runs under the profiler range ``mi_digest``, which
+        ``profile_slice.py`` reads."""
         global N_TESTS_DISPATCHED
         B = len(X)
         N_TESTS_DISPATCHED += B
         with torch.profiler.record_function("mi_digest"):
             if self.mesh is None:
                 parts = self._mi_parts(X, Y, Zs, kvec)
-                stat, df, n_obs, suff = (torch.cat(t) for t in zip(*parts))
+                stat, df, n_obs, suff = (t[0] if len(t) == 1 else torch.cat(t)
+                                         for t in zip(*parts))
             else:
                 stat, df, n_obs, suff = self._mi_sharded(X, Y, Zs, kvec)
                 df, suff = df.to(torch.int64), suff != 0
-            return _mi_digest(stat, df, n_obs, suff, self._upload(counts), B,
-                              math.log(alpha),
-                              (self.L - 1) ** 2 * self.S_hist)
+            return kernels.mi_window_digest(
+                stat, df, n_obs, suff, self._upload(counts), B,
+                math.log(alpha), (self.L - 1) ** 2 * self.S_hist)
 
     def mi_tests_finish_digest(self, handle):
         """(exit_e int64, wstat float64, wpval float64) per candidate, flat
@@ -738,15 +768,19 @@ class CondTestEngine:
         cands (W, m)) and their per-slot digests on the device, and return
         a handle for :meth:`turbo_tests_finish` without waiting.  ``tpl`` is
         ``hiton._turbo_mxu_template(m, max_k)``: the window's subset family
-        and each test's (candidate, subset) pair, held on the device once
-        for each m.  The pairs' G-tests come from
-        :func:`_turbo_pair_stats` in chunks of windows whose stratum planes
-        stay within ``TURBO_PLANE_BYTES``; each template test takes its
-        pair's through ``jb * U + ub``, and :func:`_mi_digest` digests the
-        (window, slot) segments of all W windows at once.  On a mesh each
-        shard digests whole windows, and the (3, W, NC) digests gather along
-        W.  The work runs under the profiler range ``turbo_digest``, which
-        ``profile_slice.py`` reads."""
+        and each test's (candidate, subset) pair, whose distinct pairs are
+        held on the device once for each m (:meth:`_turbo_consts`).  Where
+        ``k7`` holds the windows go through ``kernels.mi_turbo_digest``: K7,
+        one launch, on the card (the columns staged in shared memory for
+        m <= ``k7_stage_m``), on the CPU its plain version
+        (:func:`_turbo_pair_stats` in chunks of windows whose stratum planes
+        stay within ``TURBO_PLANE_BYTES``, each template test taking its
+        pair's results, then :func:`_mi_digest` over the (window, slot)
+        segments of all W windows).  Past K7's gate the same plain pair
+        stats are digested by ``kernels.mi_window_digest`` through each
+        test's pair index.  On a mesh each shard digests whole windows, and
+        the (3, W, NC) digests gather along W.  The work runs under the
+        profiler range ``turbo_digest``, which ``profile_slice.py`` reads."""
         global N_TESTS_DISPATCHED
         W = len(Ts)
         N_TESTS_DISPATCHED += W * tpl["B"]
@@ -756,32 +790,38 @@ class CondTestEngine:
                          [Ts, np.asarray(cands).reshape(W, m)], W)]
             return self._gather(parts, W, dim=1)
 
+    def _turbo_consts(self, m, tpl, dev):
+        """The template's :class:`kernels.TurboConsts` on ``dev``, uploaded
+        at the first window of m there (``_turbo_dev_cache``)."""
+        const = self._turbo_dev_cache.get((m, dev))
+        if const is None:
+            pj, pu, tpair = _turbo_pairs(tpl["jb"], tpl["ub"], tpl["U"])
+            const = kernels.turbo_consts(m, pj, pu, tpair, tpl["memb"],
+                                         tpl["klen"], tpl["counts"], dev)
+            self._turbo_dev_cache[(m, dev)] = const
+        return const
+
     def _turbo_windows(self, m, Ts, cands, alpha, tpl, shard=0):
         """:meth:`turbo_tests_begin`'s (3, W, NC) digests of the windows
         (Ts, cands) on the device of local ``shard``."""
-        W, B, NC = len(Ts), tpl["B"], tpl["NC"]
+        W = len(Ts)
         st = self.tables[shard]
         dev = st.device
-        const = self._turbo_dev_cache.get((m, dev))
-        if const is None:
-            const = tuple(self._upload(a, device=dev) for a in (
-                tpl["memb"], tpl["klen"],
-                tpl["jb"].astype(np.int64) * tpl["U"] + tpl["ub"],
-                tpl["counts"]))
-            self._turbo_dev_cache[(m, dev)] = const
-        memb, klen, pairid, counts = const
-        Wc = max(1, TURBO_PLANE_BYTES // (4 * self.n * tpl["U"] * self.S))
-        Ts_d = self._upload(Ts, device=dev)
-        C_d = self._upload(cands, (W, m), dev)
-        parts = [_turbo_pair_stats(
-            st.data, st.levels, st.max_vals, Ts_d[s:s + Wc], C_d[s:s + Wc],
-            memb, klen, float(self.hps), self.L, self.S, self.nz, self.nzu)
-            for s in range(0, W, Wc)]
-        stat, df, n_obs, suff = (torch.cat(t)[:, pairid].reshape(-1)
-                                 for t in zip(*parts))
-        return _mi_digest(stat, df, n_obs, suff, counts.repeat(W), W * B,
-                          math.log(alpha),
-                          (self.L - 1) ** 2 * self.S_hist).reshape(3, W, NC)
+        const = self._turbo_consts(m, tpl, dev)
+        args = (st, self._upload(Ts, device=dev),
+                self._upload(cands, (W, m), dev), const, float(self.hps),
+                self.max_k, self.nz_mode)
+        log_alpha = math.log(alpha)
+        max_df = (self.L - 1) ** 2 * self.S_hist
+        if self.k7:
+            return kernels.mi_turbo_digest(*args, log_alpha, max_df)
+        pairs = kernels.mi_turbo_pairs_ref(*args)
+        NPW = pairs[0].shape[1]
+        index = (torch.arange(W, device=dev)[:, None] * NPW
+                 + const.test_pairs()).reshape(-1).to(torch.int32)
+        return kernels.mi_window_digest(
+            *(t.reshape(-1) for t in pairs), const.counts.long().repeat(W),
+            W * const.B, log_alpha, max_df, index).reshape(3, W, const.NC)
 
     def turbo_tests_finish(self, handle):
         """(exit_e (W, NC) int64, wstat (W, NC), wpval (W, NC)) from a

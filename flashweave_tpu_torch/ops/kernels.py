@@ -27,6 +27,20 @@
   compacted and whose tests fit ``K5_TEST_BYTES``, :func:`k5_fits`),
   :func:`mi_cond_stats_ref` its plain version (the engine's chunks of
   ``condtests._mi_cond_kernel``).
+- K6, the mi / mi_nz window digest (``csrc/mi_window_digest.cu``), replaces
+  the log p and segment reductions of the JAX package's
+  ``flashweave_tpu/ops/condtests.py:_mi_cond_digest_scan_fn`` (over
+  ``ops/statfuns.py:mi_logpval_smalldf``), an XLA function.
+  :func:`mi_window_digest` is its wrapper, :func:`mi_window_digest_ref` its
+  plain version (``condtests._mi_digest``).
+- K7, the turbo window digest (``csrc/mi_turbo_digest.cu``), replaces the
+  JAX package's ``flashweave_tpu/ops/condtests.py:_turbo_digest_fn``, an
+  XLA function.  :func:`mi_turbo_digest` is its wrapper (uncompacted
+  strata, an int8 table), :func:`mi_turbo_digest_ref` its plain version
+  (``condtests._turbo_pair_stats`` in chunks of windows, then
+  ``condtests._mi_digest``).  K6 and K7 share the log p and the reduction
+  (``csrc/mi_digest.cuh``); K5 and K7 the G-test epilogue
+  (``csrc/mi_cond_epilogue.cuh``).
 - On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
   tensor it runs the plain version.  Each counts its launches in
   ``<wrapper>.launches``; :func:`launch_counts` reports them all.
@@ -41,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -73,6 +88,10 @@ K4_SCRATCH_BYTES = 1 << 30
 # strata, (Lr + 1)^2 * L^max_k int32 (csrc/mi_cond_stats.cu's TEST_INTS):
 # 108 cells at the nz-uniform headline, 3,125 at L = 5, max_k = 3
 K5_TEST_BYTES = 32 << 10
+# a block's shared memory on sm_90 (227 KB; csrc/mi_turbo_digest.cu)
+SMEM_BLOCK_BYTES = 232_448
+# K7's warps a window at most (csrc/mi_turbo_digest.cu's MAX_WARPS)
+K7_WARPS = 8
 
 
 @dataclass
@@ -168,6 +187,18 @@ def load_library():
             ptr, i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, f64, ptr, ptr,
             ptr, ptr, ptr]
         lib.fw_mi_cond_stats.restype = i32
+        i64 = ctypes.c_longlong
+        lib.fw_mi_window_digest.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, f64, ptr, ptr,
+            ptr]
+        lib.fw_mi_window_digest.restype = i32
+        lib.fw_mi_turbo_smem_bytes.argtypes = [i32, i32, i32, i32, i32]
+        lib.fw_mi_turbo_smem_bytes.restype = i32
+        lib.fw_mi_turbo_digest.argtypes = [
+            ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr,
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, f64, f64, i32, ptr, i32,
+            ptr, ptr, ptr, ptr, ptr, ptr]
+        lib.fw_mi_turbo_digest.restype = i32
         lib.fw_cuda_error_string.argtypes = [i32]
         lib.fw_cuda_error_string.restype = ctypes.c_char_p
         _library = (lib, info)
@@ -622,8 +653,304 @@ def mi_cond_stats(st, desc, hps, max_k, nz):
 
 mi_cond_stats.launches = 0
 
+# ---------------------------------------------------------------------------
+# K6 and K7: the window digests
+# ---------------------------------------------------------------------------
+
+_lgamma_tables: dict = {}
+
+
+def _lgamma_table(max_df: int, device) -> torch.Tensor:
+    """The (max(max_df // 2, 1), 2) float64 offsets [lgamma(k + 1),
+    lgamma(k + 1/2)] of k = 1.. that ``statfuns.mi_logpval_smalldf`` uses,
+    from ``math.lgamma`` as there, uploaded once for each max_df and
+    device."""
+    key = (max_df, torch.device(device))
+    t = _lgamma_tables.get(key)
+    if t is None:
+        t = torch.tensor([[math.lgamma(k + 1), math.lgamma(k + 0.5)]
+                          for k in range(1, max(max_df // 2, 1) + 1)],
+                         dtype=torch.float64).to(device)
+        _lgamma_tables[key] = t
+    return t
+
+
+def _check_tensor(name, t, dtype, shape, dev):
+    if (t.dtype != dtype or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous() or t.device != dev):
+        raise ValueError(f"{name} must be a contiguous {dtype} {tuple(shape)} "
+                         f"tensor on {dev}")
+
+
+def mi_window_digest_ref(stat, df, n_obs, suff, counts, B, log_alpha, max_df,
+                         index=None):
+    """Plain PyTorch version of K6: ``condtests._mi_digest`` over the tests
+    (entry ``index[b]`` for test b where ``index`` is given).  Arguments and
+    result as :func:`mi_window_digest`."""
+    from . import condtests as ct
+
+    if index is not None:
+        i = index.long()
+        stat, df, n_obs, suff = stat[i], df[i], n_obs[i], suff[i]
+    return ct._mi_digest(stat, df, n_obs, suff, counts, B, log_alpha, max_df)
+
+
+def mi_window_digest(stat, df, n_obs, suff, counts, B, log_alpha, max_df,
+                     index=None):
+    """The per-candidate digest of B conditional MI tests in NC contiguous
+    segments of ``counts`` (NC,) int64 tests: each test's float64 log p
+    (``statfuns.mi_logpval_smalldf`` for df <= max_df, 0 where ``suff`` is
+    False), significant below ``log_alpha``; per segment exit_e (the first
+    non-significant local index, -1 without one), wstat (the stat at the
+    last local index attaining the largest significant log p M) and exp(M).
+
+    Args:
+      stat, n_obs: (E,) float64; df: (E,) int64; suff: (E,) bool.
+      index: None (E == B, test b is entry b) or (B,) int32, test b reading
+        entry index[b].
+    Returns (3, NC) float64 [exit_e, wstat, exp(M)].  CUDA tensors run K6
+    (one launch, and a running sum of ``counts``); CPU tensors run the
+    plain version."""
+    dev = stat.device
+    if dev.type == "cpu":
+        return mi_window_digest_ref(stat, df, n_obs, suff, counts, B,
+                                    log_alpha, max_df, index)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    E, NC = stat.shape[0], counts.shape[0]
+    for name, t, dt in (("stat", stat, torch.float64),
+                        ("df", df, torch.int64),
+                        ("n_obs", n_obs, torch.float64),
+                        ("suff", suff, torch.bool)):
+        _check_tensor(name, t, dt, (E,), dev)
+    _check_tensor("counts", counts, torch.int64, (NC,), dev)
+    if index is None:
+        if E != B:
+            raise ValueError(f"K6: {E} tests given for B={B}")
+    else:
+        _check_tensor("index", index, torch.int32, (B,), dev)
+    if max_df < 0:
+        raise ValueError(f"K6: max_df={max_df}")
+    out = torch.empty((3, NC), dtype=torch.float64, device=dev)
+    if NC == 0:
+        return out
+    if B <= 0:
+        raise ValueError("K6: candidates without tests")
+    ends = torch.cumsum(counts, 0)
+    lg = _lgamma_table(max_df, dev)
+    lib, _ = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fw_mi_window_digest(
+            stat.data_ptr(), df.data_ptr(), n_obs.data_ptr(), suff.data_ptr(),
+            None if index is None else index.data_ptr(), counts.data_ptr(),
+            ends.data_ptr(), int(B), NC, int(max_df), float(log_alpha),
+            lg.data_ptr(), out.data_ptr(), stream)
+    _check_cuda_error(lib, err, "mi_window_digest launch")
+    mi_window_digest.launches += 1
+    return out
+
+
+mi_window_digest.launches = 0
+
+
+@dataclass
+class TurboConsts:
+    """A turbo window template's constants on one device
+    (``learning/hiton.py:_turbo_mxu_template(m, max_k)``), uploaded once
+    for each m into the engine's ``_turbo_dev_cache``: the NP distinct
+    (candidate, subset) pairs ``pj`` / ``pu`` of its B tests, each test's
+    pair ``tpair``, the U subsets ``memb`` (U, max_k) / ``klen``, and the NC
+    slots' ``counts`` and first tests ``offs``; int32 views of one
+    tensor."""
+    m: int
+    U: int
+    B: int
+    NC: int
+    NP: int
+    max_klen: int
+    pj: torch.Tensor
+    pu: torch.Tensor
+    tpair: torch.Tensor
+    memb: torch.Tensor
+    klen: torch.Tensor
+    counts: torch.Tensor
+    offs: torch.Tensor
+
+    def test_pairs(self) -> torch.Tensor:
+        """(B,) int64: each test's pair in the plain version's (m * U)
+        layout, candidate * U + subset (the template's ``jb * U + ub``)."""
+        return (self.pj.long() * self.U + self.pu.long())[self.tpair.long()]
+
+
+def turbo_consts(m, pj, pu, tpair, memb, klen, counts, device) -> TurboConsts:
+    """A :class:`TurboConsts` from the template's numpy arrays, one
+    host-to-device copy.  Every slot must hold a test, and the counts must
+    cover the B tests."""
+    import numpy as np
+
+    memb = np.asarray(memb)
+    counts = np.asarray(counts, np.int64)
+    B = len(tpair)
+    if (counts < 1).any() or counts.sum() != B:
+        raise ValueError("turbo template: a slot without tests, or counts "
+                         "that do not cover the tests")
+    offs = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    parts = [pj, pu, tpair, memb.reshape(-1), klen, counts, offs]
+    flat = torch.from_numpy(np.concatenate(
+        [np.asarray(a).reshape(-1).astype(np.int32) for a in parts]))
+    flat = flat.to(device)
+    views, at = [], 0
+    for a in parts:
+        views.append(flat[at:at + np.asarray(a).size])
+        at += np.asarray(a).size
+    views[3] = views[3].view(memb.shape)
+    return TurboConsts(m, memb.shape[0], B, len(counts), len(pj),
+                       int(np.max(klen)), *views)
+
+
+def k7_hist_ints(L: int, klen: int, nz: int) -> int:
+    """Ints of one K7 warp's histogram slice: (Lr + 1)^2 L^klen, the
+    histogram, its margins and strata (Lr = L - 1 under nz-uniform)."""
+    Lr = L - 1 if nz == 2 else L
+    return (Lr + 1) ** 2 * L ** klen
+
+
+def k7_smem_bytes(n: int, m: int, NP: int, hist_ints: int,
+                  staged: bool) -> int:
+    """Shared memory of a K7 block (``csrc/mi_turbo_digest.cu``'s layout):
+    the pairs' float64 stat and n_obs, min(8, NP) histogram slices, the
+    pairs' df and suff, and with ``staged`` the window's m + 1 columns in
+    rows of n rounded up to 16."""
+    warps = min(K7_WARPS, max(NP, 1))
+    head = 16 * NP + 4 * warps * hist_ints + 5 * NP
+    head = -(-head // 16) * 16
+    return head + ((m + 1) * (-(-n // 16) * 16) if staged else 0)
+
+
+def k7_staged(n: int, m: int, max_k: int, L: int, nz: int) -> bool:
+    """Whether K7 copies a window's m + 1 columns of n rows into shared
+    memory (else it reads them from device memory): decided from the shapes
+    alone, with the template's distinct pairs at their bound m * U (U the
+    subsets of 1..min(max_k, m - 1) of the m candidates)."""
+    kl = min(max_k, m - 1)
+    U = sum(math.comb(m, k) for k in range(1, kl + 1))
+    return k7_smem_bytes(n, m, m * U, k7_hist_ints(L, kl, nz),
+                         True) <= SMEM_BLOCK_BYTES
+
+
+def mi_turbo_pairs_ref(st, Ts, C, consts, hps, max_k, nz):
+    """(stat, df, n_obs, suff), each (W, m * U), of every (candidate,
+    subset) pair of W windows: ``condtests._turbo_pair_stats`` in chunks of
+    windows whose stratum planes stay within ``condtests.TURBO_PLANE_BYTES``
+    (the plain route's half of K7)."""
+    from . import condtests as ct
+
+    n, L = st.data.shape[0], st.L
+    S = L ** max_k
+    W = Ts.shape[0]
+    Wc = max(1, ct.TURBO_PLANE_BYTES // (4 * n * consts.U * S))
+    memb, klen = consts.memb.long(), consts.klen.long()
+    parts = [ct._turbo_pair_stats(
+        st.data, st.levels, st.max_vals, Ts[s:s + Wc], C[s:s + Wc], memb,
+        klen, float(hps), L, S, nz != 0, nz == 2) for s in range(0, W, Wc)]
+    return tuple(torch.cat(t) for t in zip(*parts))
+
+
+def mi_turbo_digest_ref(st, Ts, C, consts, hps, max_k, nz, log_alpha, max_df,
+                        return_pairs=False):
+    """Plain PyTorch version of K7: :func:`mi_turbo_pairs_ref`, each
+    template test's pair gathered, then ``condtests._mi_digest`` over the
+    (window, slot) segments of all W windows.  Arguments and results as
+    :func:`mi_turbo_digest`."""
+    from . import condtests as ct
+
+    W = Ts.shape[0]
+    P = mi_turbo_pairs_ref(st, Ts, C, consts, hps, max_k, nz)
+    tp = consts.test_pairs()
+    out = ct._mi_digest(*(t[:, tp].reshape(-1) for t in P),
+                        consts.counts.long().repeat(W), W * consts.B,
+                        log_alpha, max_df).reshape(3, W, consts.NC)
+    if not return_pairs:
+        return out
+    pid = consts.pj.long() * consts.U + consts.pu.long()
+    return out, tuple(t[:, pid] for t in P)
+
+
+def mi_turbo_digest(st, Ts, C, consts, hps, max_k, nz, log_alpha, max_df,
+                    return_pairs=False):
+    """The turbo window digest of W full-target windows: for each window
+    (target Ts[w], candidates C[w]) every distinct (candidate, subset) pair
+    of the template ``consts`` (:class:`TurboConsts`) through the
+    conditional G-test (signed MI, adjusted df, n_obs, power check over
+    L^max_k strata), its log p, and each of the NC slots' digest as
+    :func:`mi_window_digest` computes it over the slot's tests.
+
+    Args:
+      st: the table as a ``state.DiscreteState`` (K7 reads ``dataT``, the
+        plain version ``data``).
+      Ts: (W,) int64; C: (W, m) int64 variable indices.
+      nz: 0 plain, 1 per-variable nz offsets, 2 nz-uniform.
+    Returns (3, W, NC) float64 [exit_e, wstat, exp(M)]; with
+    ``return_pairs`` also the distinct pairs' (stat float64, df int64, n_obs
+    float64, suff bool), each (W, NP).  CUDA tensors run K7 (an int8 table,
+    strata not compacted), one launch, the columns staged in shared memory
+    where :func:`k7_staged` says; CPU tensors run the plain version."""
+    dataT = st.dataT
+    dev = dataT.device
+    if dev.type == "cpu":
+        return mi_turbo_digest_ref(st, Ts, C, consts, hps, max_k, nz,
+                                   log_alpha, max_df, return_pairs)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    p, n = dataT.shape
+    L, W, m = st.L, Ts.shape[0], consts.m
+    if dataT.dtype != torch.int8 or not dataT.is_contiguous() or n == 0:
+        raise ValueError("K7 needs dataT as a contiguous int8 (p, n) tensor")
+    if nz not in (0, 1, 2) or (nz == 2 and L != 3):
+        raise ValueError(f"invalid nz={nz} for L={L}")
+    if consts.memb.shape[1] != max_k or max_df < 0 or W == 0:
+        raise ValueError("K7: the template, max_k, max_df or W")
+    _check_tensor("Ts", Ts, torch.int64, (W,), dev)
+    _check_tensor("C", C, torch.int64, (W, m), dev)
+    for name in ("levels", "max_vals"):
+        _check_tensor(name, getattr(st, name), torch.int32, (p,), dev)
+    if consts.pj.device != dev:
+        raise ValueError(f"K7: the template is not on {dev}")
+    hist = k7_hist_ints(L, consts.max_klen, nz)
+    staged = k7_staged(n, m, max_k, L, nz)
+    if k7_smem_bytes(n, m, consts.NP, hist, staged) > SMEM_BLOCK_BYTES:
+        raise ValueError(f"K7: a window of m={m} exceeds a block's shared "
+                         "memory")
+    NC, NP = consts.NC, consts.NP
+    out = torch.empty((3, W, NC), dtype=torch.float64, device=dev)
+    pairs = (tuple(torch.empty((W, NP), dtype=dt, device=dev)
+                   for dt in (torch.float64, torch.int64, torch.float64,
+                              torch.bool))
+             if return_pairs else (None,) * 4)
+    lg = _lgamma_table(max_df, dev)
+    lib, _ = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fw_mi_turbo_digest(
+            dataT.data_ptr(), n, st.levels.data_ptr(), st.max_vals.data_ptr(),
+            Ts.data_ptr(), C.data_ptr(), W, m, L, int(nz),
+            *(t.data_ptr() for t in (consts.pj, consts.pu, consts.tpair,
+                                     consts.memb, consts.klen, consts.counts,
+                                     consts.offs)),
+            NP, NC, max_k, hist, float(hps), float(log_alpha), int(max_df),
+            lg.data_ptr(), int(staged), out.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in pairs), stream)
+    _check_cuda_error(lib, err, "mi_turbo_digest launch")
+    mi_turbo_digest.launches += 1
+    return (out, pairs) if return_pairs else out
+
+
+mi_turbo_digest.launches = 0
+
 _WRAPPERS = (mi_univar_stats, fz_nz_stats, pair_ctab_planes,
-             mi_univar_stats_planes, mi_cond_stats)
+             mi_univar_stats_planes, mi_cond_stats, mi_window_digest,
+             mi_turbo_digest)
 
 
 def reset_launch_counts() -> None:

@@ -13,8 +13,9 @@ so that ``profile_slice.py fz 2048 65536`` profiles phase 10 and
 once under ``torch.profiler`` and prints the stage seconds, the card's busy
 share (CUDA kernel and copy time over wall time), the largest CUDA entries
 by device time, each hand kernel's device ms and launches (K5,
-``mi_cond_stats``, the conditional G-test of the mi window tests, beside
-K1-K4), the device work of each window digest (the profiler ranges
+``mi_cond_stats``, the conditional G-test of the mi window tests, K6,
+``mi_window_digest``, the window digest's log p and reduction, and K7,
+``mi_turbo_digest``, the turbo windows, beside K1-K4), the device work of each window digest (the profiler ranges
 ``cont_digest``, ``mi_digest`` and ``turbo_digest``: calls, device ms,
 launches, largest kernels) and the search layer's window counts
 (``hiton.WINDOW_STATS``: speculative windows by kind; turbo windows tried,
@@ -43,7 +44,9 @@ KERNEL_NAMES = {"mi_univar_stats": "mi_univar_stats_kernel",
                 "fz_nz_stats": "fz_nz_stats_kernel",
                 "pair_ctab_planes": "mi_pair_ctabs_kernel",
                 "mi_univar_stats_planes": "mi_univar_stats_planes_",
-                "mi_cond_stats": "mi_cond_stats_kernel"}
+                "mi_cond_stats": "mi_cond_stats_kernel",
+                "mi_window_digest": "mi_window_digest_kernel",
+                "mi_turbo_digest": "mi_turbo_digest_kernel"}
 
 
 def hand_kernels(cuda, launches):
@@ -63,21 +66,29 @@ def hand_kernels(cuda, launches):
 
 def range_kernels(events, name, top=12):
     """The device work under the profiler range ``name`` (a window digest's,
-    ``DIGESTS``): its calls, device milliseconds and
-    launches, and the largest (kernel, launches, ms), found by walking each
-    range's CPU children to the kernels and copies they launched."""
+    ``DIGESTS``): its calls, device milliseconds and launches, and the
+    largest (kernel, launches, ms).  A device activity (kernel, copy,
+    memset) belongs to the range when the host call that launched it (its
+    CUDA runtime event, matched by correlation id) ran inside one of the
+    range's calls: the profiler links a kernel launched through ctypes (the
+    hand kernels) to no PyTorch op, so the op tree alone misses them."""
+    import bisect
+
+    calls = sorted((ev.time_range.start, ev.time_range.end) for ev in events
+                   if ev.name == name and ev.device_type.name == "CPU")
+    starts = [a for a, _ in calls]
+    device = {ev.id: ev for ev in events if ev.device_type.name == "CUDA"}
     by = {}
-
-    def walk(ev):
-        for k in ev.kernels:
-            c, t = by.get(k.name, (0, 0.0))
-            by[k.name] = (c + 1, t + k.duration / 1e3)
-        for child in ev.cpu_children:
-            walk(child)
-
-    calls = [ev for ev in events if ev.name == name and ev.device_type.name == "CPU"]
-    for ev in calls:
-        walk(ev)
+    for ev in events:
+        if (ev.device_type.name != "CPU" or not ev.name.startswith("cuda")
+                or ev.id not in device):
+            continue
+        i = bisect.bisect_right(starts, ev.time_range.start) - 1
+        if i < 0 or ev.time_range.start > calls[i][1]:
+            continue
+        k = device[ev.id]
+        c, t = by.get(k.name, (0, 0.0))
+        by[k.name] = (c + 1, t + (k.time_range.end - k.time_range.start) / 1e3)
     rows = sorted(by.items(), key=lambda kv: -kv[1][1])
     return {"calls": len(calls), "device_ms": sum(t for _, t in by.values()),
             "launches": sum(c for c, _ in by.values()),

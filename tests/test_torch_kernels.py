@@ -128,7 +128,9 @@ def test_cpu_wrapper_runs_plain_version_without_counting():
     assert K.launch_counts() == {"mi_univar_stats": 0, "fz_nz_stats": 0,
                                  "pair_ctab_planes": 0,
                                  "mi_univar_stats_planes": 0,
-                                 "mi_cond_stats": 0}
+                                 "mi_cond_stats": 0,
+                                 "mi_window_digest": 0,
+                                 "mi_turbo_digest": 0}
 
 
 def test_wrapper_rejects_other_devices():
@@ -299,7 +301,9 @@ def test_fz_nz_cpu_wrapper_runs_plain_version_without_counting():
     assert K.launch_counts() == {"mi_univar_stats": 0, "fz_nz_stats": 0,
                                  "pair_ctab_planes": 0,
                                  "mi_univar_stats_planes": 0,
-                                 "mi_cond_stats": 0}
+                                 "mi_cond_stats": 0,
+                                 "mi_window_digest": 0,
+                                 "mi_turbo_digest": 0}
 
 
 def test_fz_nz_wrapper_rejects_other_devices():

@@ -230,7 +230,8 @@ def test_cpu_wrappers_run_plain_versions_without_counting():
     assert set(K.launch_counts()) == {"mi_univar_stats", "fz_nz_stats",
                                       "pair_ctab_planes",
                                       "mi_univar_stats_planes",
-                                      "mi_cond_stats"}
+                                      "mi_cond_stats", "mi_window_digest",
+                                      "mi_turbo_digest"}
     assert not any(K.launch_counts().values())
 
 

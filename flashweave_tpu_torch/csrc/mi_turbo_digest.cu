@@ -21,12 +21,16 @@
 //   (x - o) + Lr (y - o) + Lr^2 z,   z = sum_i C[memb[u][i]] L^i,
 // as in K5 (csrc/mi_cond_stats.cu), with L^klen strata.
 //
-// What bounds it on this card: the window's column bytes and one
-// shared-memory atomic for each kept row of each distinct pair.  A window
-// reads (m + 1) n bytes of the table once (22.5 KB at n = 2,048, m = 10)
-// and writes 24 NC bytes; its NP pairs (1,290 at m = 10, max_k = 3) each
-// sweep 2 + klen columns of shared memory and add n atomics.  The log p
-// chains (up to max_df / 2 steps a pair) come next.
+// What bounds it on this card: the function's floor is the larger of the
+// window's column bytes (the table read once: (m + 1) n bytes a window,
+// 22.5 KB at n = 2,048, m = 10; 24 NC bytes written) and its pairs' joint
+// tables counted as int8 tensor-core products, 2 Lr^2 L^klen n operations
+// a pair as K3's planes are counted (NP = 1,290 pairs at m = 10, max_k =
+// 3).  This kernel builds the tables on the SIMT pipes instead, so what
+// holds it is one shared-memory atomic for each kept row of each distinct
+// pair: each pair sweeps 2 + klen columns and adds up to n atomics.  The
+// pairs' float64 log p chains (up to max_df / 2 steps a pair) run beside
+// them.
 //
 // What the design does about it:
 // - one block a window; the block copies the window's m + 1 columns into

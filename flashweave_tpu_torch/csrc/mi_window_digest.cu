@@ -13,18 +13,19 @@
 //
 // Inputs: per test (stat float64, df int64, n_obs float64, suff bool) of B
 // tests in NC contiguous segments, `counts` (NC,) int64 and their running
-// sums `ends`; optionally an int32 gather index (test b reads entry
-// index[b]).  Output (3, NC) float64 [exit_e, wstat, exp(M)]: exit_e the
+// sums `ends`.  Output (3, NC) float64 [exit_e, wstat, exp(M)]: exit_e the
 // first local index whose log p is not below log alpha (-1: none), M the
 // largest significant log p (-inf: none), wstat the stat at the last local
 // index attaining it (at the segment's first test without one).  A test
 // whose power check failed has log p 0.
 //
 // What bounds it on this card: the float64 transcendentals.  A test of df d
-// runs d / 2 steps of the logsumexp chain, each an exp, an exp and a log,
-// while it reads 25 bytes (4 more through the index); at the headline's
-// max_df = 108 a test costs up to 54 steps, over a thousand float64
-// operations a test against the card's 67 TFLOP/s.
+// runs d / 2 steps of the logsumexp chain, each two exp and a log (libdevice
+// calls) and six other float64 operations, while it reads 25 bytes; at the
+// headline's max_df = 108 a test runs up to 54 steps.  What a libdevice
+// call costs in instructions is not measured, so the operation bound is
+// known only as a floor, each call counted as one operation
+// (chip_smoke.py's logp_fp64_ops).
 //
 // What the design does about it:
 // - one warp a segment, four segments a block; lanes take the segment's
@@ -53,7 +54,6 @@ struct Args {
   const long long* df;
   const double* nobs;
   const uint8_t* suff;
-  const int* index;                   // nullptr: test b reads entry b
   const long long* counts;            // (NC,)
   const long long* ends;              // (NC,) running sums of counts
   long long B;
@@ -73,9 +73,8 @@ mi_window_digest_kernel(Args a) {
   fw_digest::Best b = fw_digest::best_init();
   for (long long j = lane; j < cnt; j += 32) {
     const long long t = offs + j;
-    const long long g = a.index ? a.index[t] : t;
     const double logp =
-        a.suff[g] ? fw_digest::mi_logp(a.stat[g], a.df[g], a.nobs[g],
+        a.suff[t] ? fw_digest::mi_logp(a.stat[t], a.df[t], a.nobs[t],
                                        a.max_df, a.lg)
                   : 0.0;
     fw_digest::best_add(b, (int)j, logp, a.log_alpha);
@@ -85,7 +84,7 @@ mi_window_digest_kernel(Args a) {
   // the plain version's clamp of the weakest test's place into the batch
   const long long at = min(offs + max(b.w, 0), a.B - 1);
   a.out[c] = b.exit == INT_MAX ? -1.0 : (double)b.exit;
-  a.out[a.NC + c] = a.stat[a.index ? a.index[at] : at];
+  a.out[a.NC + c] = a.stat[at];
   a.out[2 * (long long)a.NC + c] = exp(b.M);
 }
 
@@ -94,19 +93,17 @@ mi_window_digest_kernel(Args a) {
 extern "C" {
 
 // Launches K6 on `stream` and returns the cudaError_t of the launch (0 on
-// success).  stat, nobs: float64, df: int64, suff: uint8, each indexed by
-// the test's entry (index[b] where `index`, int32 (B,), is given, else b);
+// success).  stat, nobs: float64, df: int64, suff: uint8, each (B,);
 // counts, ends: (NC,) int64 with ends[NC - 1] == B; lg: (max_df / 2, 2)
 // float64; out: (3, NC) float64.
 int fw_mi_window_digest(const void* stat, const void* df, const void* nobs,
-                        const void* suff, const void* index,
-                        const void* counts, const void* ends, long long B,
+                        const void* suff, const void* counts, const void* ends, long long B,
                         int NC, int max_df, double log_alpha, const void* lg,
                         void* out, void* stream) {
   if (B <= 0 || NC <= 0 || max_df < 0) return (int)cudaErrorInvalidValue;
   Args a{static_cast<const double*>(stat), static_cast<const long long*>(df),
          static_cast<const double*>(nobs), static_cast<const uint8_t*>(suff),
-         static_cast<const int*>(index), static_cast<const long long*>(counts),
+         static_cast<const long long*>(counts),
          static_cast<const long long*>(ends), B, NC, max_df, log_alpha,
          static_cast<const double*>(lg), static_cast<double*>(out)};
   const int blocks = (NC + WARPS - 1) / WARPS;

@@ -52,7 +52,7 @@ The mi / mi_nz windows have two device digests where (L-1)^2 * S <= 128
   package's ``_turbo_digest_fn``): every distinct (candidate, subset)
   pair's G-test of a full-target window, then each slot's tests through
   their pairs' log p and the same reduction, in one K7 launch
-  (``kernels.mi_turbo_digest``) where ``k7`` holds; its plain version
+  (``kernels.mi_turbo_digest``) on the card; its plain version
   builds the pairs' joint tables from one batched product of 0/1
   level-indicator planes (:func:`_turbo_pair_stats`) and digests through
   :func:`_mi_digest`; on by default wherever its gate holds.
@@ -509,11 +509,9 @@ class CondTestEngine:
     on by default on every device (``FORCE_TURBO_MXU``), as the JAX package
     runs it under float64.  A failure in any device digest raises: nothing falls back to
     the host digest.  The window digest's log p and reduction run K6
-    (``kernels.mi_window_digest``) on the card; ``k7`` (``turbo_mxu`` and
-    ``k5``), decided from shapes here, sends the turbo windows through K7
-    (``kernels.mi_turbo_digest``), which stages a window's columns in
-    shared memory up to ``k7_stage_m`` candidates at this n; on the CPU both
-    wrappers run their plain versions.
+    (``kernels.mi_window_digest``) on the card, the turbo windows K7
+    (``kernels.mi_turbo_digest``; ``turbo_mxu`` implies ``k5``, whose
+    gate K7 shares); on the CPU both wrappers run their plain versions.
 
     ``k5``, decided from shapes here: the per-test results of mi / mi_nz
     (``mi_tests_begin``, the window digest's tests, a mesh's shards) come
@@ -549,8 +547,6 @@ class CondTestEngine:
         self.dev_digest = False
         self.turbo_mxu = False
         self.k5 = False
-        self.k7 = False
-        self.k7_stage_m = 0
         self.cor_device = False
         self.cor_onfly = False
         self.cont_dev = False
@@ -609,13 +605,9 @@ class CondTestEngine:
         if small and self.S == self.S_hist:
             self.turbo_mxu = (True if FORCE_TURBO_MXU is None
                               else bool(FORCE_TURBO_MXU))
-        # K7 for the turbo windows, and the largest candidate count whose
-        # windows it stages in shared memory at this n
-        self.k7 = self.turbo_mxu and self.k5
-        self.k7_stage_m = max(
-            (m for m in range(2, 65) if kernels.k7_staged(
-                self.n, m, max_k, self.L, self.nz_mode)),
-            default=0) if self.k7 else 0
+        # K7 takes every turbo window: (L-1)^2 S <= 128 keeps L <= 12 (an
+        # int8 table) and a test within K5_TEST_BYTES
+        assert self.k5 or not self.turbo_mxu, "turbo windows outside K5's gate"
         self._turbo_dev_cache = {}
 
     def _replicate(self, x):
@@ -769,16 +761,13 @@ class CondTestEngine:
         a handle for :meth:`turbo_tests_finish` without waiting.  ``tpl`` is
         ``hiton._turbo_mxu_template(m, max_k)``: the window's subset family
         and each test's (candidate, subset) pair, whose distinct pairs are
-        held on the device once for each m (:meth:`_turbo_consts`).  Where
-        ``k7`` holds the windows go through ``kernels.mi_turbo_digest``: K7,
-        one launch, on the card (the columns staged in shared memory for
-        m <= ``k7_stage_m``), on the CPU its plain version
-        (:func:`_turbo_pair_stats` in chunks of windows whose stratum planes
-        stay within ``TURBO_PLANE_BYTES``, each template test taking its
-        pair's results, then :func:`_mi_digest` over the (window, slot)
-        segments of all W windows).  Past K7's gate the same plain pair
-        stats are digested by ``kernels.mi_window_digest`` through each
-        test's pair index.  On a mesh each shard digests whole windows, and
+        held on the device once for each m (:meth:`_turbo_consts`).  The
+        windows go through ``kernels.mi_turbo_digest``: K7, one launch, on
+        the card; on the CPU its plain version (:func:`_turbo_pair_stats` in
+        chunks of windows whose stratum planes stay within
+        ``TURBO_PLANE_BYTES``, each template test taking its pair's results,
+        then :func:`_mi_digest` over the (window, slot) segments of all W
+        windows).  On a mesh each shard digests whole windows, and
         the (3, W, NC) digests gather along W.  The work runs under the
         profiler range ``turbo_digest``, which ``profile_slice.py`` reads."""
         global N_TESTS_DISPATCHED
@@ -807,21 +796,10 @@ class CondTestEngine:
         W = len(Ts)
         st = self.tables[shard]
         dev = st.device
-        const = self._turbo_consts(m, tpl, dev)
-        args = (st, self._upload(Ts, device=dev),
-                self._upload(cands, (W, m), dev), const, float(self.hps),
-                self.max_k, self.nz_mode)
-        log_alpha = math.log(alpha)
-        max_df = (self.L - 1) ** 2 * self.S_hist
-        if self.k7:
-            return kernels.mi_turbo_digest(*args, log_alpha, max_df)
-        pairs = kernels.mi_turbo_pairs_ref(*args)
-        NPW = pairs[0].shape[1]
-        index = (torch.arange(W, device=dev)[:, None] * NPW
-                 + const.test_pairs()).reshape(-1).to(torch.int32)
-        return kernels.mi_window_digest(
-            *(t.reshape(-1) for t in pairs), const.counts.long().repeat(W),
-            W * const.B, log_alpha, max_df, index).reshape(3, W, const.NC)
+        return kernels.mi_turbo_digest(
+            st, self._upload(Ts, device=dev), self._upload(cands, (W, m), dev),
+            self._turbo_consts(m, tpl, dev), float(self.hps), self.max_k,
+            self.nz_mode, math.log(alpha), (self.L - 1) ** 2 * self.S_hist)
 
     def turbo_tests_finish(self, handle):
         """(exit_e (W, NC) int64, wstat (W, NC), wpval (W, NC)) from a

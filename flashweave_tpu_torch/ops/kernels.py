@@ -189,8 +189,7 @@ def load_library():
         lib.fw_mi_cond_stats.restype = i32
         i64 = ctypes.c_longlong
         lib.fw_mi_window_digest.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, f64, ptr, ptr,
-            ptr]
+            ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, f64, ptr, ptr, ptr]
         lib.fw_mi_window_digest.restype = i32
         lib.fw_mi_turbo_smem_bytes.argtypes = [i32, i32, i32, i32, i32]
         lib.fw_mi_turbo_smem_bytes.restype = i32
@@ -682,21 +681,15 @@ def _check_tensor(name, t, dtype, shape, dev):
                          f"tensor on {dev}")
 
 
-def mi_window_digest_ref(stat, df, n_obs, suff, counts, B, log_alpha, max_df,
-                         index=None):
-    """Plain PyTorch version of K6: ``condtests._mi_digest`` over the tests
-    (entry ``index[b]`` for test b where ``index`` is given).  Arguments and
+def mi_window_digest_ref(stat, df, n_obs, suff, counts, B, log_alpha, max_df):
+    """Plain PyTorch version of K6: ``condtests._mi_digest``.  Arguments and
     result as :func:`mi_window_digest`."""
     from . import condtests as ct
 
-    if index is not None:
-        i = index.long()
-        stat, df, n_obs, suff = stat[i], df[i], n_obs[i], suff[i]
     return ct._mi_digest(stat, df, n_obs, suff, counts, B, log_alpha, max_df)
 
 
-def mi_window_digest(stat, df, n_obs, suff, counts, B, log_alpha, max_df,
-                     index=None):
+def mi_window_digest(stat, df, n_obs, suff, counts, B, log_alpha, max_df):
     """The per-candidate digest of B conditional MI tests in NC contiguous
     segments of ``counts`` (NC,) int64 tests: each test's float64 log p
     (``statfuns.mi_logpval_smalldf`` for df <= max_df, 0 where ``suff`` is
@@ -705,30 +698,23 @@ def mi_window_digest(stat, df, n_obs, suff, counts, B, log_alpha, max_df,
     last local index attaining the largest significant log p M) and exp(M).
 
     Args:
-      stat, n_obs: (E,) float64; df: (E,) int64; suff: (E,) bool.
-      index: None (E == B, test b is entry b) or (B,) int32, test b reading
-        entry index[b].
+      stat, n_obs: (B,) float64; df: (B,) int64; suff: (B,) bool.
     Returns (3, NC) float64 [exit_e, wstat, exp(M)].  CUDA tensors run K6
     (one launch, and a running sum of ``counts``); CPU tensors run the
     plain version."""
     dev = stat.device
     if dev.type == "cpu":
         return mi_window_digest_ref(stat, df, n_obs, suff, counts, B,
-                                    log_alpha, max_df, index)
+                                    log_alpha, max_df)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    E, NC = stat.shape[0], counts.shape[0]
+    NC = counts.shape[0]
     for name, t, dt in (("stat", stat, torch.float64),
                         ("df", df, torch.int64),
                         ("n_obs", n_obs, torch.float64),
                         ("suff", suff, torch.bool)):
-        _check_tensor(name, t, dt, (E,), dev)
+        _check_tensor(name, t, dt, (B,), dev)
     _check_tensor("counts", counts, torch.int64, (NC,), dev)
-    if index is None:
-        if E != B:
-            raise ValueError(f"K6: {E} tests given for B={B}")
-    else:
-        _check_tensor("index", index, torch.int32, (B,), dev)
     if max_df < 0:
         raise ValueError(f"K6: max_df={max_df}")
     out = torch.empty((3, NC), dtype=torch.float64, device=dev)
@@ -743,8 +729,7 @@ def mi_window_digest(stat, df, n_obs, suff, counts, B, log_alpha, max_df,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fw_mi_window_digest(
             stat.data_ptr(), df.data_ptr(), n_obs.data_ptr(), suff.data_ptr(),
-            None if index is None else index.data_ptr(), counts.data_ptr(),
-            ends.data_ptr(), int(B), NC, int(max_df), float(log_alpha),
+            counts.data_ptr(), ends.data_ptr(), int(B), NC, int(max_df), float(log_alpha),
             lg.data_ptr(), out.data_ptr(), stream)
     _check_cuda_error(lib, err, "mi_window_digest launch")
     mi_window_digest.launches += 1
@@ -839,11 +824,14 @@ def k7_staged(n: int, m: int, max_k: int, L: int, nz: int) -> bool:
                          True) <= SMEM_BLOCK_BYTES
 
 
-def mi_turbo_pairs_ref(st, Ts, C, consts, hps, max_k, nz):
-    """(stat, df, n_obs, suff), each (W, m * U), of every (candidate,
-    subset) pair of W windows: ``condtests._turbo_pair_stats`` in chunks of
-    windows whose stratum planes stay within ``condtests.TURBO_PLANE_BYTES``
-    (the plain route's half of K7)."""
+def mi_turbo_digest_ref(st, Ts, C, consts, hps, max_k, nz, log_alpha, max_df,
+                        return_pairs=False):
+    """Plain PyTorch version of K7: every (candidate, subset) pair's
+    (stat, df, n_obs, suff) from ``condtests._turbo_pair_stats`` in chunks
+    of windows whose stratum planes stay within
+    ``condtests.TURBO_PLANE_BYTES``, each template test's pair gathered,
+    then ``condtests._mi_digest`` over the (window, slot) segments of all W
+    windows.  Arguments and results as :func:`mi_turbo_digest`."""
     from . import condtests as ct
 
     n, L = st.data.shape[0], st.L
@@ -854,19 +842,7 @@ def mi_turbo_pairs_ref(st, Ts, C, consts, hps, max_k, nz):
     parts = [ct._turbo_pair_stats(
         st.data, st.levels, st.max_vals, Ts[s:s + Wc], C[s:s + Wc], memb,
         klen, float(hps), L, S, nz != 0, nz == 2) for s in range(0, W, Wc)]
-    return tuple(torch.cat(t) for t in zip(*parts))
-
-
-def mi_turbo_digest_ref(st, Ts, C, consts, hps, max_k, nz, log_alpha, max_df,
-                        return_pairs=False):
-    """Plain PyTorch version of K7: :func:`mi_turbo_pairs_ref`, each
-    template test's pair gathered, then ``condtests._mi_digest`` over the
-    (window, slot) segments of all W windows.  Arguments and results as
-    :func:`mi_turbo_digest`."""
-    from . import condtests as ct
-
-    W = Ts.shape[0]
-    P = mi_turbo_pairs_ref(st, Ts, C, consts, hps, max_k, nz)
+    P = tuple(torch.cat(t) for t in zip(*parts))
     tp = consts.test_pairs()
     out = ct._mi_digest(*(t[:, tp].reshape(-1) for t in P),
                         consts.counts.long().repeat(W), W * consts.B,
@@ -878,7 +854,7 @@ def mi_turbo_digest_ref(st, Ts, C, consts, hps, max_k, nz, log_alpha, max_df,
 
 
 def mi_turbo_digest(st, Ts, C, consts, hps, max_k, nz, log_alpha, max_df,
-                    return_pairs=False):
+                    return_pairs=False, staged=None):
     """The turbo window digest of W full-target windows: for each window
     (target Ts[w], candidates C[w]) every distinct (candidate, subset) pair
     of the template ``consts`` (:class:`TurboConsts`) through the
@@ -891,6 +867,9 @@ def mi_turbo_digest(st, Ts, C, consts, hps, max_k, nz, log_alpha, max_df,
         plain version ``data``).
       Ts: (W,) int64; C: (W, m) int64 variable indices.
       nz: 0 plain, 1 per-variable nz offsets, 2 nz-uniform.
+      staged: K7's variant, None to take it from the shapes
+        (:func:`k7_staged`); True or False force it (``chip_smoke.py`` times
+        both).
     Returns (3, W, NC) float64 [exit_e, wstat, exp(M)]; with
     ``return_pairs`` also the distinct pairs' (stat float64, df int64, n_obs
     float64, suff bool), each (W, NP).  CUDA tensors run K7 (an int8 table,
@@ -918,7 +897,8 @@ def mi_turbo_digest(st, Ts, C, consts, hps, max_k, nz, log_alpha, max_df,
     if consts.pj.device != dev:
         raise ValueError(f"K7: the template is not on {dev}")
     hist = k7_hist_ints(L, consts.max_klen, nz)
-    staged = k7_staged(n, m, max_k, L, nz)
+    if staged is None:
+        staged = k7_staged(n, m, max_k, L, nz)
     if k7_smem_bytes(n, m, consts.NP, hist, staged) > SMEM_BLOCK_BYTES:
         raise ValueError(f"K7: a window of m={m} exceeds a block's shared "
                          "memory")

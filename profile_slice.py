@@ -15,9 +15,10 @@ share (CUDA kernel and copy time over wall time), the largest CUDA entries
 by device time, each hand kernel's device ms and launches (K5,
 ``mi_cond_stats``, the conditional G-test of the mi window tests, K6,
 ``mi_window_digest``, the window digest's log p and reduction, and K7,
-``mi_turbo_digest``, the turbo windows, beside K1-K4), the device work of each window digest (the profiler ranges
-``cont_digest``, ``mi_digest`` and ``turbo_digest``: calls, device ms,
-launches, largest kernels) and the search layer's window counts
+``mi_turbo_digest``, the turbo windows, beside K1-K4), the device work of
+each window digest (the profiler ranges ``cont_digest``, ``mi_digest`` and ``turbo_digest``: calls, device ms,
+launches, largest kernels; beside them the op tree's count, which misses
+the hand kernels) and the search layer's window counts
 (``hiton.WINDOW_STATS``: speculative windows by kind; turbo windows tried,
 on the turbo digest, held in full, lost to an interleaving rejection or an
 elimination); then profiles the host side of a third LGL run and of one
@@ -70,28 +71,48 @@ def range_kernels(events, name, top=12):
     largest (kernel, launches, ms).  A device activity (kernel, copy,
     memset) belongs to the range when the host call that launched it (its
     CUDA runtime event, matched by correlation id) ran inside one of the
-    range's calls: the profiler links a kernel launched through ctypes (the
-    hand kernels) to no PyTorch op, so the op tree alone misses them."""
+    range's calls on the range's thread: the profiler links a kernel
+    launched through ctypes (the hand kernels) to no PyTorch op, so the op
+    tree alone misses them.  ``op_tree`` gives the device milliseconds and
+    launches of the op tree alone (the kernels linked to a PyTorch op
+    under the range's calls), the count that misses them."""
     import bisect
 
-    calls = sorted((ev.time_range.start, ev.time_range.end) for ev in events
-                   if ev.name == name and ev.device_type.name == "CPU")
-    starts = [a for a, _ in calls]
+    calls = {}
+    tree = [0, 0.0]
+
+    def walk(ev):
+        for k in ev.kernels:
+            tree[0] += 1
+            tree[1] += k.duration / 1e3
+        for child in ev.cpu_children:
+            walk(child)
+
+    for ev in events:
+        if ev.name == name and ev.device_type.name == "CPU":
+            calls.setdefault(ev.thread, []).append(
+                (ev.time_range.start, ev.time_range.end))
+            walk(ev)
+    for spans in calls.values():
+        spans.sort()
     device = {ev.id: ev for ev in events if ev.device_type.name == "CUDA"}
     by = {}
     for ev in events:
         if (ev.device_type.name != "CPU" or not ev.name.startswith("cuda")
-                or ev.id not in device):
+                or ev.id not in device or ev.thread not in calls):
             continue
-        i = bisect.bisect_right(starts, ev.time_range.start) - 1
-        if i < 0 or ev.time_range.start > calls[i][1]:
+        spans = calls[ev.thread]
+        i = bisect.bisect_right(spans, (ev.time_range.start, float("inf"))) - 1
+        if i < 0 or ev.time_range.start > spans[i][1]:
             continue
         k = device[ev.id]
         c, t = by.get(k.name, (0, 0.0))
         by[k.name] = (c + 1, t + (k.time_range.end - k.time_range.start) / 1e3)
     rows = sorted(by.items(), key=lambda kv: -kv[1][1])
-    return {"calls": len(calls), "device_ms": sum(t for _, t in by.values()),
+    return {"calls": sum(len(v) for v in calls.values()),
+            "device_ms": sum(t for _, t in by.values()),
             "launches": sum(c for c, _ in by.values()),
+            "op_tree": {"device_ms": tree[1], "launches": tree[0]},
             "by_kernel": [[k[:60], c, t] for k, (c, t) in rows[:top]]}
 
 

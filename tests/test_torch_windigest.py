@@ -1,8 +1,8 @@
 """K6 (the mi / mi_nz window digest) and K7 (the turbo window digest) of the
 PyTorch port on the CPU, where their wrappers run the plain versions:
 
-- K6's wrapper equals ``condtests._mi_digest`` bit for bit, with and
-  without its gather index, and a hand case holds its edge cases: a
+- K6's wrapper equals ``condtests._mi_digest`` bit for bit at the
+  headline's max_df and at a 2-level table's, and a hand case holds its edge cases: a
   segment with no significant test, ties of log p (the last index wins),
   df = 0, 1 and max_df, a failed power check, x past ``ERFC_DIRECT_MAX``.
 - K7's wrapper equals the turbo route before it (each chunk's
@@ -10,12 +10,12 @@ PyTorch port on the CPU, where their wrappers run the plain versions:
   for bit, and its plain version equals the JAX package's
   ``_turbo_digest_fn`` under x64 (``test_torch_midigest.py``'s
   tolerances) for m = 2..10 and max_k = 1..3 in nz modes 0, 1 and 2 (a
-  Latin square of the three); the engine's route past K7's gate (the plain
-  pairs digested through K6's index) equals it bit for bit.
+  Latin square of the three).
 - The distinct (candidate, subset) pairs and each test's index into them
   reproduce the template's ``jb * U + ub`` for every m <= 10 and
   max_k <= 3.
-- The ``k7`` gate and K7's staging of the columns follow from shapes.
+- Wherever the turbo windows run, K5's gate, which K7 shares, holds; K7's
+  staging of the columns follows from shapes.
 No launch is counted: CPU tensors never launch a kernel.
 """
 
@@ -59,23 +59,18 @@ def _random_tests(B, max_df, seed):
             torch.from_numpy(n_obs), torch.from_numpy(suff))
 
 
-@pytest.mark.parametrize("with_index", [False, True])
-def test_window_digest_wrapper_equals_mi_digest(with_index):
+@pytest.mark.parametrize("max_df", [108, 8])
+def test_window_digest_wrapper_equals_mi_digest(max_df):
+    """At the headline's max_df ((3-1)^2 27, nz-uniform) and a 2-level
+    table's at max_k 3 (8)."""
     K.reset_launch_counts()
-    max_df = 108
-    tests = _random_tests(6000, max_df, seed=1)
     rng = np.random.default_rng(2)
     counts = rng.integers(1, 12, 200)
     B = int(counts.sum())
+    tests = _random_tests(B, max_df, seed=1)
     counts_t = torch.from_numpy(counts)
-    if with_index:
-        index = torch.from_numpy(rng.integers(0, 6000, B).astype(np.int32))
-        want = tct._mi_digest(*(t[index.long()] for t in tests), counts_t, B,
-                              LA, max_df)
-    else:
-        tests = tuple(t[:B] for t in tests)
-        index, want = None, tct._mi_digest(*tests, counts_t, B, LA, max_df)
-    got = K.mi_window_digest(*tests, counts_t, B, LA, max_df, index=index)
+    want = tct._mi_digest(*tests, counts_t, B, LA, max_df)
+    got = K.mi_window_digest(*tests, counts_t, B, LA, max_df)
     assert got.dtype == torch.float64 and got.shape == (3, 200)
     assert torch.equal(got, want)
     out = got.numpy()
@@ -203,13 +198,13 @@ def _windows(p, W, m, seed):
     return np.asarray(Ts, np.int64), np.asarray(cands, np.int64)
 
 
-def _engine(nz_mode, max_k, monkeypatch):
+def _engine(nz_mode, max_k):
     data = _table(nz_mode)
     test = "mi" if nz_mode == 0 else "mi_nz"
     levels, maxv = get_levels(data), get_max_vals(data)
     eng = tct.CondTestEngine(data, test, max_k, levels=levels, max_vals=maxv,
                              hps=5, device="cpu")
-    assert eng.turbo_mxu and eng.k5 and eng.k7 and eng.nz_mode == nz_mode
+    assert eng.turbo_mxu and eng.k5 and eng.nz_mode == nz_mode
     return data, levels, maxv, eng
 
 
@@ -266,21 +261,18 @@ def _weakest(pairs, tpair, counts, W, max_df):
 
 
 @pytest.mark.parametrize("m,max_k,nz_mode", K7_CASES)
-def test_turbo_digest(m, max_k, nz_mode, monkeypatch):
+def test_turbo_digest(m, max_k, nz_mode):
     """K7's wrapper (its plain version here) equals the route before it bit
     for bit, and the JAX package's turbo digest with the tolerances of
-    ``test_torch_midigest.py``; the engine's route past K7's gate equals
-    it bit for bit."""
+    ``test_torch_midigest.py``."""
     K.reset_launch_counts()
-    data, levels, maxv, eng = _engine(nz_mode, max_k, monkeypatch)
+    data, levels, maxv, eng = _engine(nz_mode, max_k)
     tpl = _turbo_mxu_template(m, max_k)
     W = 6
     Ts, cands = _windows(data.shape[1], W, m, seed=m)
     got = eng._turbo_windows(m, Ts, cands, ALPHA, tpl)
     assert got.shape == (3, W, tpl["NC"]) and got.dtype == torch.float64
     assert torch.equal(got, _old_route(eng, m, Ts, cands, tpl))
-    monkeypatch.setattr(eng, "k7", False)
-    assert torch.equal(eng._turbo_windows(m, Ts, cands, ALPHA, tpl), got)
     assert _no_launches()
 
     jeng = jct.CondTestEngine(data, "mi" if nz_mode == 0 else "mi_nz", max_k,
@@ -315,25 +307,38 @@ def test_turbo_digest(m, max_k, nz_mode, monkeypatch):
 # ---------------------------------------------------------------------------
 
 def test_k7_gate_follows_shapes(monkeypatch):
+    """The turbo windows run only where K5's gate holds (K7 shares it, and
+    the engine asserts it), decided from shapes: across level counts and
+    max_k wherever the digests' cell bound lets the turbo route on."""
     three = _table(2, n=200, p=12)
     binary = (_table(0, n=200, p=12) > 0).astype(np.float64)
 
     def route(data, test="mi_nz", max_k=3):
         e = tct.CondTestEngine(data, test, max_k, hps=5, device="cpu")
-        return e.turbo_mxu, e.k5, e.k7, e.k7_stage_m
+        return e.turbo_mxu, e.k5
 
-    assert route(three)[:3] == (True, True, True)
-    assert route(binary, "mi")[:3] == (True, True, True)
+    assert route(three) == (True, True)
+    assert route(binary, "mi") == (True, True)
     # compacted strata (n // hps + 1 = 21 < 27): neither turbo nor K5
-    assert route(three[:100]) == (False, False, False, 0)
+    assert route(three[:100]) == (False, False)
     # 12 levels: past the digests' gate (K5 too at max_k 3)
     twelve = np.random.default_rng(0).integers(0, 12, (200, 12)).astype(float)
-    assert route(twelve, "mi")[2:] == (False, 0)
-    assert route(three, max_k=0)[2:] == (False, 0)
-    assert route(three, "fz")[2:] == (False, 0)
+    assert route(twelve, "mi") == (False, False)
+    assert route(three, max_k=0)[0] is False
+    assert route(three, "fz")[0] is False
     monkeypatch.setattr(tct, "FORCE_TURBO_MXU", False)
-    assert route(three) == (False, True, False, 0)
+    assert route(three) == (False, True)
     monkeypatch.setattr(tct, "FORCE_TURBO_MXU", None)
+    rng = np.random.default_rng(1)
+    on = 0
+    for L in range(2, 7):
+        table = rng.integers(0, L, (700, 8)).astype(float)
+        for max_k in (1, 2, 3, 7):
+            for test in ("mi", "mi_nz"):
+                turbo, k5 = route(table, test, max_k)
+                assert k5 or not turbo
+                on += turbo
+    assert on >= 6
     # staging: the largest m whose columns fit beside its pairs' bound
     for n, L, nz, max_k in ((200, 3, 2, 3), (2048, 3, 2, 3), (2048, 2, 0, 3),
                             (24_000, 3, 2, 3), (100_000, 3, 2, 3)):

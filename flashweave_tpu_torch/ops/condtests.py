@@ -380,23 +380,22 @@ def _mi_digest(stat, df, n_obs, suff, counts, B, log_alpha, max_df):
                           counts.shape[0], B)
 
 
-def _turbo_pair_stats(data, levels, maxv, Tw, Cw, memb, klen, hps, L, S, nz,
-                      nzu):
-    """(stat, df, n_obs, suff) of every (candidate, subset) pair of Wc
-    full-target windows (target Tw (Wc,), m candidates Cw (Wc, m)), each
-    (Wc, m * U), on the device (the tables and G-tests of the JAX package's
-    ``_turbo_digest_fn``).
+def _turbo_tables(data, maxv, Tw, Cw, memb, klen, L, S, nz, nzu):
+    """The joint tables of every (candidate, subset) pair of Wc full-target
+    windows (target Tw (Wc,), m candidates Cw (Wc, m)), on the device (the
+    JAX package's ``_turbo_digest_fn`` before its G-tests): (P, ox, oy), P
+    (Wc, m, Lr, Lr, U, S) in the product's float type, cell [w, j, a, b,
+    u, s] the rows of window w whose target sits at level a + o, candidate
+    j at b + o (o = 1 under nz-uniform) and subset u in stratum s; ox (Wc,)
+    and oy (Wc, m) the generic nz offsets (None otherwise).
 
-    A (n, Wc, m * Lq): the (x, y) level-indicator planes of each
+    A (n, Wc, m * Lr^2): the (x, y) level-indicator planes of each
     (target, candidate) pair, the nz row mask folded in (nz-uniform: levels
     1..L-1 only, so the indicators are the mask); Bz (n, Wc, U * S): the
     stratum indicators of the window's U subsets (``memb`` / ``klen``, radix
     z-codes in base L).  One batched product A^T Bz gives every
     (candidate, subset) joint table; 0/1 products summed in float32 are
-    exact below 2^24 rows (float64 past that).  The G-tests follow a pair
-    in float64, in the pair layout (Wc, m, a, b, U, S), with the same
-    reductions as ``_mi_cond_kernel``: signed MI, adjusted df and the power
-    check."""
+    exact below 2^24 rows (float64 past that)."""
     n = data.shape[0]
     Wc, m = Cw.shape
     U, max_k = memb.shape
@@ -409,6 +408,7 @@ def _turbo_pair_stats(data, levels, maxv, Tw, Cw, memb, klen, hps, L, S, nz,
     xo = x[..., None] == lv                                     # (n, Wc, Lr)
     yo = ys[..., None] == lv                                    # (n, Wc, m, Lr)
     A = xo[:, :, None, :, None] & yo[:, :, :, None, :]
+    ox = oy = None
     if nz and not nzu:
         # generic nz: binary variables keep their zeros (offset 0)
         ox = maxv[Tw] > 1                                       # (Wc,)
@@ -421,7 +421,24 @@ def _turbo_pair_stats(data, levels, maxv, Tw, Cw, memb, klen, hps, L, S, nz,
     zc = (ys[:, :, memb.reshape(-1)].reshape(n, Wc, U, max_k) * wz).sum(-1)
     Bz = (zc[..., None] == torch.arange(S, device=dev)).reshape(n, Wc, U * S)
     P = torch.bmm(A.permute(1, 2, 0), Bz.to(mm).permute(1, 0, 2))
-    P6 = P.reshape(Wc, m, Lr, Lr, U, S).to(f64)
+    return P.reshape(Wc, m, Lr, Lr, U, S), ox, oy
+
+
+def _turbo_pair_stats(data, levels, maxv, Tw, Cw, memb, klen, hps, L, S, nz,
+                      nzu):
+    """(stat, df, n_obs, suff) of every (candidate, subset) pair of Wc
+    full-target windows (target Tw (Wc,), m candidates Cw (Wc, m)), each
+    (Wc, m * U), on the device (the tables and G-tests of the JAX package's
+    ``_turbo_digest_fn``): the tables of :func:`_turbo_tables`, then the
+    G-tests in float64, in the pair layout (Wc, m, a, b, U, S), with the
+    same reductions as ``_mi_cond_kernel``: signed MI, adjusted df and the
+    power check."""
+    Wc, m = Cw.shape
+    U = memb.shape[0]
+    dev, f64 = data.device, torch.float64
+    P, ox, oy = _turbo_tables(data, maxv, Tw, Cw, memb, klen, L, S, nz, nzu)
+    Lr = P.shape[2]
+    P6 = P.to(f64)
     marg_i = P6.sum(dim=3)                                      # (Wc,m,a,U,S)
     marg_j = P6.sum(dim=2)                                      # (Wc,m,b,U,S)
     marg_k = marg_i.sum(dim=2)                                  # (Wc,m,U,S)

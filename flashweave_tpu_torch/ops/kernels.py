@@ -36,9 +36,10 @@
 - K7, the turbo window digest (``csrc/mi_turbo_digest.cu``), replaces the
   JAX package's ``flashweave_tpu/ops/condtests.py:_turbo_digest_fn``, an
   XLA function.  :func:`mi_turbo_digest` is its wrapper (uncompacted
-  strata, an int8 table), :func:`mi_turbo_digest_ref` its plain version
-  (``condtests._turbo_pair_stats`` in chunks of windows, then
-  ``condtests._mi_digest``).  K6 and K7 share the log p and the reduction
+  strata, an int8 table; the pairs' tables as one int8 tensor-core product
+  a window, in the passes of :func:`k7_plan`), :func:`mi_turbo_digest_ref`
+  its plain version (``condtests._turbo_pair_stats`` in chunks of windows,
+  then ``condtests._mi_digest``).  K6 and K7 share the log p and the reduction
   (``csrc/mi_digest.cuh``); K5 and K7 the G-test epilogue
   (``csrc/mi_cond_epilogue.cuh``).
 - On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
@@ -60,7 +61,7 @@ import os
 import shutil
 import subprocess
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
@@ -90,8 +91,22 @@ K4_SCRATCH_BYTES = 1 << 30
 K5_TEST_BYTES = 32 << 10
 # a block's shared memory on sm_90 (227 KB; csrc/mi_turbo_digest.cu)
 SMEM_BLOCK_BYTES = 232_448
-# K7's warps a window at most (csrc/mi_turbo_digest.cu's MAX_WARPS)
+# K7's warps a window at most (csrc/mi_turbo_digest.cu's MAX_WARPS), the
+# 16 x 8 accumulator tiles a warp holds (ACC_TILES), the M-tiles of a pass
+# (MAX_MTW), the largest Lr (MAX_LR: a candidate's Lr^2 rows within
+# MAX_MTW tiles at any alignment), the subsets a pass at most (their codes
+# in shared memory), and its ring: CHUNK samples a stage, each column's
+# chunk staged in WINDOW bytes, STAGES stages, and a subset's descriptor
+# of ZDESC_INTS ints (its size and members' columns)
 K7_WARPS = 8
+K7_ACC_TILES = 16
+K7_MAX_MTW = 4
+K7_MAX_LR = 7
+K7_ZROWS = 128
+K7_CHUNK = 128
+K7_WINDOW = K7_CHUNK + 16
+K7_STAGES = 3
+K7_ZDESC_INTS = 8
 
 
 @dataclass
@@ -191,12 +206,12 @@ def load_library():
         lib.fw_mi_window_digest.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, f64, ptr, ptr, ptr]
         lib.fw_mi_window_digest.restype = i32
-        lib.fw_mi_turbo_smem_bytes.argtypes = [i32, i32, i32, i32, i32]
+        lib.fw_mi_turbo_smem_bytes.argtypes = [i32] * 7
         lib.fw_mi_turbo_smem_bytes.restype = i32
         lib.fw_mi_turbo_digest.argtypes = [
-            ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr,
-            ptr, ptr, ptr, ptr, i32, i32, i32, i32, f64, f64, i32, ptr, i32,
-            ptr, ptr, ptr, ptr, ptr, ptr]
+            ptr, i32, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr,
+            ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+            i32, i32, i32, f64, f64, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
         lib.fw_mi_turbo_digest.restype = i32
         lib.fw_cuda_error_string.argtypes = [i32]
         lib.fw_cuda_error_string.restype = ctypes.c_char_p
@@ -747,7 +762,8 @@ class TurboConsts:
     (candidate, subset) pairs ``pj`` / ``pu`` of its B tests, each test's
     pair ``tpair``, the U subsets ``memb`` (U, max_k) / ``klen``, and the NC
     slots' ``counts`` and first tests ``offs``; int32 views of one
-    tensor."""
+    tensor.  ``host`` keeps klen, pj and pu on the host (numpy), and
+    ``plans`` K7's passes (:class:`K7Plan`) for each (L, nz) once made."""
     m: int
     U: int
     B: int
@@ -761,6 +777,8 @@ class TurboConsts:
     klen: torch.Tensor
     counts: torch.Tensor
     offs: torch.Tensor
+    host: dict = field(default_factory=dict, repr=False)
+    plans: dict = field(default_factory=dict, repr=False)
 
     def test_pairs(self) -> torch.Tensor:
         """(B,) int64: each test's pair in the plain version's (m * U)
@@ -791,7 +809,10 @@ def turbo_consts(m, pj, pu, tpair, memb, klen, counts, device) -> TurboConsts:
         at += np.asarray(a).size
     views[3] = views[3].view(memb.shape)
     return TurboConsts(m, memb.shape[0], B, len(counts), len(pj),
-                       int(np.max(klen)), *views)
+                       int(np.max(klen)), *views,
+                       host={k: np.asarray(v, np.int64)
+                             for k, v in (("klen", klen), ("pj", pj),
+                                          ("pu", pu))})
 
 
 def k7_hist_ints(L: int, klen: int, nz: int) -> int:
@@ -801,27 +822,140 @@ def k7_hist_ints(L: int, klen: int, nz: int) -> int:
     return (Lr + 1) ** 2 * L ** klen
 
 
-def k7_smem_bytes(n: int, m: int, NP: int, hist_ints: int,
-                  staged: bool) -> int:
+@dataclass
+class K7Plan:
+    """K7's passes over one template at L levels in nz mode
+    (:func:`k7_plan`): ``colo`` (U + 1,) the first column of each subset's
+    strata in B (the subsets' S_u = L^klen columns end to end), ``passes``
+    (npass, 4) [j0, j1, u0, u1], the candidates and subsets a pass
+    finishes, and its pairs ``ppairs[poffs[i]:poffs[i + 1]]`` (indices
+    into pj / pu); ``mtw`` the M-tiles of A a pass at most (K7's template
+    argument), ``warps`` a block, ``cg_ints`` the largest pass slab and
+    ``zrows`` the most subsets a pass; ``tensor`` colo, passes, poffs and
+    ppairs as one int32 tensor on the device, once uploaded."""
+    Lr: int
+    colo: object
+    passes: object
+    poffs: object
+    ppairs: object
+    mtw: int
+    warps: int
+    cg_ints: int
+    zrows: int
+    tensor: torch.Tensor = None
+
+    def rows(self, j0, j1):
+        """[R0, R1): the A rows (whole 16-row M-tiles) of candidates
+        [j0, j1)."""
+        LL = self.Lr * self.Lr
+        return j0 * LL // 16 * 16, -(-j1 * LL // 16) * 16
+
+    def cols(self, u0, u1):
+        """[C0, C1): the B columns (whole 8-column N-tiles) of subsets
+        [u0, u1)."""
+        return int(self.colo[u0]) // 8 * 8, -(-int(self.colo[u1]) // 8) * 8
+
+
+def k7_slab_stride(ntp: int) -> int:
+    """Ints a row of a pass's slab of ntp N-tiles: 8 ntp rounded up to 32,
+    plus 8 (a half-warp's two-int stores hit distinct banks)."""
+    return -(-8 * ntp // 32) * 32 + 8
+
+
+def k7_plan(m: int, L: int, nz: int, klen, pj, pu) -> K7Plan:
+    """K7's passes (csrc/mi_turbo_digest.cu) over the product of a window's
+    A (m Lr^2 cell rows) and B (sum_u L^klen[u] stratum columns): candidate
+    ranges whose rows fill at most ``mtw`` = min(ceil(m Lr^2 / 16),
+    K7_MAX_MTW) M-tiles, times subset ranges of at most ``K7_ZROWS``
+    subsets whose columns fill at most K7_WARPS * (K7_ACC_TILES / mtw)
+    N-tiles, each taken greedily in order; each distinct pair (pj, pu) is
+    listed in the pass of its candidate and subset.  A block has K7_WARPS
+    warps, or one a N-tile where no pass has that many.  Raises where K7
+    does not take the shapes: Lr > K7_MAX_LR or a stratum code past
+    127."""
+    import numpy as np
+
+    Lr = L - 1 if nz == 2 else L
+    LL = Lr * Lr
+    klen = np.asarray(klen, np.int64)
+    S = L ** klen
+    if Lr > K7_MAX_LR or S.max() > 128:
+        raise ValueError(f"K7: L={L}, nz={nz}, klen up to {klen.max()} "
+                         f"(Lr <= {K7_MAX_LR} and L^klen <= 128)")
+    colo = np.concatenate([[0], np.cumsum(S)]).astype(np.int64)
+    U = len(klen)
+    mtw = min(-(-m * LL // 16), K7_MAX_MTW)
+    cap = K7_WARPS * (K7_ACC_TILES // mtw)
+    jr, j0 = [], 0
+    while j0 < m:
+        j1 = j0 + 1
+        while j1 < m and -(-(j1 + 1) * LL // 16) - j0 * LL // 16 <= mtw:
+            j1 += 1
+        jr.append((j0, j1))
+        j0 = j1
+    ur, u0 = [], 0
+    while u0 < U:
+        u1 = u0 + 1
+        while (u1 < U and u1 + 1 - u0 <= K7_ZROWS
+               and -(-int(colo[u1 + 1]) // 8) - int(colo[u0]) // 8 <= cap):
+            u1 += 1
+        ur.append((u0, u1))
+        u0 = u1
+    passes = np.array([(a, b, c, d) for a, b in jr for c, d in ur], np.int64)
+    pj, pu = np.asarray(pj, np.int64), np.asarray(pu, np.int64)
+    jpass = np.searchsorted([b for _, b in jr], pj, side="right")
+    upass = np.searchsorted([d for _, d in ur], pu, side="right")
+    which = jpass * len(ur) + upass
+    ppairs = np.argsort(which, kind="stable")
+    poffs = np.searchsorted(which[ppairs], np.arange(len(passes) + 1))
+    plan = K7Plan(Lr, colo, passes, poffs, ppairs, mtw, 0, 0, 0)
+    ntps = [(plan.cols(c, d)[1] - plan.cols(c, d)[0]) // 8 for c, d in ur]
+    plan.warps = min(K7_WARPS, max(ntps))
+    plan.cg_ints = max((plan.rows(a, b)[1] - plan.rows(a, b)[0])
+                       * k7_slab_stride(t) for a, b in jr for t in ntps)
+    plan.zrows = max(d - c for c, d in ur)
+    return plan
+
+
+def k7_device_plan(consts: TurboConsts, L: int, nz: int, device) -> K7Plan:
+    """:func:`k7_plan` of the template ``consts`` with its tensor on
+    ``device``, made and uploaded once for each (L, nz)."""
+    import numpy as np
+
+    plan = consts.plans.get((L, nz))
+    if plan is None:
+        h = consts.host
+        plan = k7_plan(consts.m, L, nz, h["klen"], h["pj"], h["pu"])
+        plan.tensor = torch.from_numpy(np.concatenate(
+            [plan.colo, plan.passes.reshape(-1), plan.poffs,
+             plan.ppairs]).astype(np.int32)).to(device)
+        consts.plans[(L, nz)] = plan
+    return plan
+
+
+def k7_smem_bytes(NP: int, warps: int, hist_ints: int, m: int, mtw: int,
+                  cg_ints: int, zrows: int) -> int:
     """Shared memory of a K7 block (``csrc/mi_turbo_digest.cu``'s layout):
-    the pairs' float64 stat and n_obs, min(8, NP) histogram slices, the
-    pairs' df and suff, and with ``staged`` the window's m + 1 columns in
-    rows of n rounded up to 16."""
-    warps = min(K7_WARPS, max(NP, 1))
-    head = 16 * NP + 4 * warps * hist_ints + 5 * NP
-    head = -(-head // 16) * 16
-    return head + ((m + 1) * (-(-n // 16) * 16) if staged else 0)
+    the pairs' float64 stat and n_obs, int32 df and byte suff; ``warps``
+    histogram slices of ``hist_ints`` ints; each warp's B columns (8 bytes
+    for each of the 8 columns of its K7_ACC_TILES // mtw N-tiles); the
+    pass's subsets' descriptors (K7_ZDESC_INTS ints each, ``zrows`` of
+    them); the m + 1 columns' references and flags; then the larger of a
+    pass's streams (the ring of K7_STAGES chunks of m + 1 columns, and two
+    buffers each of 16 mtw rows of A and of ``zrows`` subsets' codes and a
+    zero row, K7_WINDOW bytes a row) and the slab of ``cg_ints`` ints that
+    aliases them."""
+    def a16(x):
+        return -(-x // 16) * 16
 
-
-def k7_staged(n: int, m: int, max_k: int, L: int, nz: int) -> bool:
-    """Whether K7 copies a window's m + 1 columns of n rows into shared
-    memory (else it reads them from device memory): decided from the shapes
-    alone, with the template's distinct pairs at their bound m * U (U the
-    subsets of 1..min(max_k, m - 1) of the m candidates)."""
-    kl = min(max_k, m - 1)
-    U = sum(math.comb(m, k) for k in range(1, kl + 1))
-    return k7_smem_bytes(n, m, m * U, k7_hist_ints(L, kl, nz),
-                         True) <= SMEM_BLOCK_BYTES
+    hist = a16(21 * NP)
+    lanes = a16(hist + 4 * warps * hist_ints)
+    cols = (lanes + warps * (K7_ACC_TILES // mtw) * 64
+            + 4 * K7_ZDESC_INTS * zrows)
+    ring = a16(cols + 5 * (m + 1))
+    streams = (K7_STAGES * (m + 1) + 2 * 16 * mtw + 2 * (zrows + 1)) \
+        * K7_WINDOW
+    return ring + max(4 * cg_ints, streams)
 
 
 def mi_turbo_digest_ref(st, Ts, C, consts, hps, max_k, nz, log_alpha, max_df,
@@ -854,7 +988,7 @@ def mi_turbo_digest_ref(st, Ts, C, consts, hps, max_k, nz, log_alpha, max_df,
 
 
 def mi_turbo_digest(st, Ts, C, consts, hps, max_k, nz, log_alpha, max_df,
-                    return_pairs=False, staged=None):
+                    return_pairs=False):
     """The turbo window digest of W full-target windows: for each window
     (target Ts[w], candidates C[w]) every distinct (candidate, subset) pair
     of the template ``consts`` (:class:`TurboConsts`) through the
@@ -867,14 +1001,12 @@ def mi_turbo_digest(st, Ts, C, consts, hps, max_k, nz, log_alpha, max_df,
         plain version ``data``).
       Ts: (W,) int64; C: (W, m) int64 variable indices.
       nz: 0 plain, 1 per-variable nz offsets, 2 nz-uniform.
-      staged: K7's variant, None to take it from the shapes
-        (:func:`k7_staged`); True or False force it (``chip_smoke.py`` times
-        both).
     Returns (3, W, NC) float64 [exit_e, wstat, exp(M)]; with
     ``return_pairs`` also the distinct pairs' (stat float64, df int64, n_obs
     float64, suff bool), each (W, NP).  CUDA tensors run K7 (an int8 table,
-    strata not compacted), one launch, the columns staged in shared memory
-    where :func:`k7_staged` says; CPU tensors run the plain version."""
+    16-byte aligned, strata not compacted, n < 2^24, the shapes
+    :func:`k7_plan` takes), one launch; CPU tensors run the plain
+    version."""
     dataT = st.dataT
     dev = dataT.device
     if dev.type == "cpu":
@@ -886,6 +1018,7 @@ def mi_turbo_digest(st, Ts, C, consts, hps, max_k, nz, log_alpha, max_df,
     L, W, m = st.L, Ts.shape[0], consts.m
     if dataT.dtype != torch.int8 or not dataT.is_contiguous() or n == 0:
         raise ValueError("K7 needs dataT as a contiguous int8 (p, n) tensor")
+    _check_pipe_table("K7", dataT)     # counts exact below 2^24 samples
     if nz not in (0, 1, 2) or (nz == 2 and L != 3):
         raise ValueError(f"invalid nz={nz} for L={L}")
     if consts.memb.shape[1] != max_k or max_df < 0 or W == 0:
@@ -896,10 +1029,10 @@ def mi_turbo_digest(st, Ts, C, consts, hps, max_k, nz, log_alpha, max_df,
         _check_tensor(name, getattr(st, name), torch.int32, (p,), dev)
     if consts.pj.device != dev:
         raise ValueError(f"K7: the template is not on {dev}")
+    plan = k7_device_plan(consts, L, nz, dev)
     hist = k7_hist_ints(L, consts.max_klen, nz)
-    if staged is None:
-        staged = k7_staged(n, m, max_k, L, nz)
-    if k7_smem_bytes(n, m, consts.NP, hist, staged) > SMEM_BLOCK_BYTES:
+    if k7_smem_bytes(consts.NP, plan.warps, hist, m, plan.mtw, plan.cg_ints,
+                     plan.zrows) > SMEM_BLOCK_BYTES:
         raise ValueError(f"K7: a window of m={m} exceeds a block's shared "
                          "memory")
     NC, NP = consts.NC, consts.NP
@@ -913,13 +1046,15 @@ def mi_turbo_digest(st, Ts, C, consts, hps, max_k, nz, log_alpha, max_df,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fw_mi_turbo_digest(
-            dataT.data_ptr(), n, st.levels.data_ptr(), st.max_vals.data_ptr(),
-            Ts.data_ptr(), C.data_ptr(), W, m, L, int(nz),
+            dataT.data_ptr(), n, p, st.levels.data_ptr(),
+            st.max_vals.data_ptr(), Ts.data_ptr(), C.data_ptr(), W, m, L,
+            int(nz),
             *(t.data_ptr() for t in (consts.pj, consts.pu, consts.tpair,
                                      consts.memb, consts.klen, consts.counts,
-                                     consts.offs)),
-            NP, NC, max_k, hist, float(hps), float(log_alpha), int(max_df),
-            lg.data_ptr(), int(staged), out.data_ptr(),
+                                     consts.offs, plan.tensor)),
+            consts.U, len(plan.passes), plan.mtw, plan.warps, plan.cg_ints,
+            plan.zrows, NP, NC, max_k, hist, float(hps), float(log_alpha),
+            int(max_df), lg.data_ptr(), out.data_ptr(),
             *(None if t is None else t.data_ptr() for t in pairs), stream)
     _check_cuda_error(lib, err, "mi_turbo_digest launch")
     mi_turbo_digest.launches += 1

@@ -174,6 +174,107 @@ def test_chip_smoke_ptxas_report_names_each_kernel():
     assert smoke.kernel_key("_ZN3fooEv") is None
 
 
+def _smoke_module():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_chip_smoke_sass_counts_and_fp64_ops():
+    """chip_smoke.py's phase-1 SASS readings on cuobjdump-style text: the
+    tensor-core and shared-atomic instructions of each kernel (K7 by its
+    template argument), and a one-call probe's float64 operations on the
+    path a typical argument takes (the longest, stepping over CALLs) and
+    every instruction once, an FMA as two, beside its conditional branches;
+    then the log p chain's count from them (each call as one gives the count
+    before the SASS was read)."""
+    smoke = _smoke_module()
+    k7 = "_ZN12_GLOBAL__N_122mi_turbo_digest_kernelILi2EEEv4Args"
+    sass = "\n".join([
+        "\tcode for sm_90a",
+        f"\t\tFunction : {k7}",
+        "        /*0000*/                   IMMA.16832.U8.U8 R4, R8, R12, R4 ;",
+        "        /*0010*/                   IMMA.16832.U8.U8 R4, R8, R14, R4 ;",
+        "        /*0020*/                   EXIT ;",
+        "\t\tFunction : fw_probe_exp_kernel",
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x0 */",
+        "        /*0010*/                   DFMA R4, R2, R4, R6 ;",
+        "        /*0020*/              @P0 BRA 0x50 ;",
+        "        /*0030*/                   DADD R4, R4, R6 ;",
+        "        /*0040*/                   BRA 0x70 ;",
+        "        /*0050*/                   DMUL R4, R4, R4 ;",
+        "        /*0060*/                   BRA 0x30 ;",
+        "        /*0070*/                   F2I.F64.TRUNC R0, R4 ;",
+        "        /*0080*/              @!P1 DSETP.GEU.AND P0, PT, R4, R6, PT ;",
+        "        /*0090*/                   EXIT ;",
+        "        /*00a0*/                   BRA 0xa0 ;",
+        "\t\tFunction : _ZN3fooEv",
+        "        /*0000*/                   ATOMS.ADD RZ, [R2], R3 ;",
+    ])
+    assert smoke.sass_counts(sass) == {
+        "mi_turbo_digest<2>": {"DMMA": 0, "IMMA": 2, "HGMMA": 0, "ATOMS": 0}}
+    part = sass.split("Function : ")[2]
+    # the longest path: DFMA, DMUL, DADD, F2I (the predicated DSETP left
+    # out); every instruction once: 6
+    assert smoke.sass_fp64_ops(part) == {"ops": 5, "all": 6, "branches": 1}
+    # a CALL is stepped over: its subroutine (a slow path) is not counted
+    called = part.replace("DMUL R4, R4, R4 ;", "CALL.REL.NOINC 0xa0 ;")
+    called = called.replace("BRA 0xa0 ;", "DFMA R4, R4, R4, R4 ;")
+    assert smoke.sass_fp64_ops(called) == {"ops": 4, "all": 7,
+                                           "branches": 1}
+    assert smoke.sass_counts(sass.replace("IMMA.16832.U8.U8 R4, R8, R14",
+                                          "ATOMS.ADD RZ, [R2], R3")) == {
+        "mi_turbo_digest<2>": {"DMMA": 0, "IMMA": 1, "HGMMA": 0, "ATOMS": 1}}
+    with pytest.raises(RuntimeError, match="probes"):
+        smoke.logp_call_ops(sass)
+    smoke.LOGP_OPS.update({c: 1 for c in smoke.FP64_CALLS})
+    df = np.array([0, 1, 2, 4, 5, 7, 9, 200])
+    suff = np.array([True] * 7 + [True])
+    # 0, 4, 2, 9 * 2 - 7, 9 * 2 + 6, 9 * 3 + 6, 9 * 4 + 6, past max_df 0;
+    # two a test
+    assert smoke.logp_fp64_ops(df, suff, 108) == (
+        0 + 4 + 2 + 11 + 24 + 33 + 42 + 0 + 2 * 8)
+    assert smoke.logp_fp64_ops(df, ~suff, 108) == 2 * 8
+    smoke.LOGP_OPS.update(exp=20, log=30)
+    # a step of the even chain: two exp and a log beside six operations
+    assert (smoke.logp_fp64_ops([6], [True], 108)
+            - smoke.logp_fp64_ops([4], [True], 108)) == 2 * 20 + 30 + 6
+
+
+@pytest.mark.parametrize("nz", [0, 2])
+def test_chip_smoke_turbo_occupied_cells(nz):
+    """The G-tests' work in K7's bound: the occupied cells of every
+    distinct pair of each window, as chip_smoke.py counts them from the
+    plain route's tables, equal a count of the distinct (x, y, z) of the
+    rows in numpy; the G-tests' floor adds one operation a cell to the
+    n + 1 logs of a c log c table."""
+    smoke = _smoke_module()
+    L, max_k, m, p, n = 3, 3, 4, 40, 300
+    data = smoke.synth_table(n, p, 5, seed=3)
+    st = from_numpy_state(data, None, None, "cpu")
+    Ts, C = smoke.turbo_windows(p, 6, m, 5, seed=4)
+    consts = smoke.turbo_template_consts(m, "cpu", max_k)
+    want = 0
+    for w in range(len(Ts)):
+        for j, u in zip(consts.pj.tolist(), consts.pu.tolist()):
+            x, y = data[:, Ts[w]], data[:, C[w, j]]
+            z = sum(data[:, C[w, int(consts.memb[u, i])]].astype(np.int64)
+                    * L ** i for i in range(int(consts.klen[u])))
+            keep = (x != 0) & (y != 0) if nz == 2 else np.ones_like(x, bool)
+            want += len(set(zip(x[keep], y[keep],
+                                np.broadcast_to(z, keep.shape)[keep])))
+    got = smoke.turbo_occupied_cells(st, torch.from_numpy(Ts),
+                                     torch.from_numpy(C), consts, nz, max_k)
+    assert got == want
+    smoke.LOGP_OPS["log"] = 45
+    assert smoke.gtest_fp64_ops(got, n) == got + (n + 1) * 45
+
+
 def test_build_needs_nvcc(monkeypatch):
     """Without nvcc the build raises instead of falling back."""
     monkeypatch.setenv("PATH", "")

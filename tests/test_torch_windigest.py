@@ -14,8 +14,9 @@ PyTorch port on the CPU, where their wrappers run the plain versions:
 - The distinct (candidate, subset) pairs and each test's index into them
   reproduce the template's ``jb * U + ub`` for every m <= 10 and
   max_k <= 3.
-- Wherever the turbo windows run, K5's gate, which K7 shares, holds; K7's
-  staging of the columns follows from shapes.
+- Wherever the turbo windows run, K5's gate, which K7 shares, holds, and
+  every template the turbo route takes fits K7's shared memory; K7's passes
+  and layout at the headline's windows.
 No launch is counted: CPU tensors never launch a kernel.
 """
 
@@ -28,6 +29,7 @@ from scipy.special import log_ndtr
 from scipy.stats import chi2
 
 from flashweave_tpu.ops import condtests as jct
+from flashweave_tpu_torch.learning import hiton
 from flashweave_tpu_torch.learning.hiton import _turbo_mxu_template
 from flashweave_tpu_torch.ops import condtests as tct
 from flashweave_tpu_torch.ops import kernels as K
@@ -339,26 +341,78 @@ def test_k7_gate_follows_shapes(monkeypatch):
                 assert k5 or not turbo
                 on += turbo
     assert on >= 6
-    # staging: the largest m whose columns fit beside its pairs' bound
-    for n, L, nz, max_k in ((200, 3, 2, 3), (2048, 3, 2, 3), (2048, 2, 0, 3),
-                            (24_000, 3, 2, 3), (100_000, 3, 2, 3)):
-        staged = [m for m in range(2, 65) if K.k7_staged(n, m, max_k, L, nz)]
-        assert staged == list(range(2, 2 + len(staged)))   # a prefix of m
-    assert K.k7_staged(2048, 10, 3, 3, 2)
-    assert K.k7_staged(24_000, 3, 3, 3, 2)
-    assert not K.k7_staged(24_000, 10, 3, 3, 2)
-    assert not K.k7_staged(300_000, 2, 3, 3, 2)
+    # every template the turbo route takes fits K7's shared memory: each
+    # (L, max_k, nz) of the digests' gate, each m whose template holds at
+    # most TURBO_MXU_BUDGET tests
+    gate = [(L, max_k, nz) for L in range(2, 13) for max_k in range(1, 8)
+            for nz in (0, 1, 2)
+            if (L - 1) ** 2 * L ** max_k <= tct.DIGEST_CELLS
+            and (nz != 2 or L == 3)]
+    assert (2, 7, 0) in gate and (3, 3, 2) in gate and (5, 1, 1) in gate
+    assert max(L for L, _, _ in gate) == 5
+    widest = 0
+    for L, max_k, nz in gate:
+        m = 2
+        while _turbo_mxu_template(m, max_k)["B"] <= hiton.TURBO_MXU_BUDGET:
+            tpl = _turbo_mxu_template(m, max_k)
+            pj, pu, _ = tct._turbo_pairs(tpl["jb"], tpl["ub"], tpl["U"])
+            plan = K.k7_plan(m, L, nz, tpl["klen"], pj, pu)
+            bytes_ = K.k7_smem_bytes(
+                len(pj), plan.warps, K.k7_hist_ints(L, min(max_k, m - 1), nz),
+                m, plan.mtw, plan.cg_ints, plan.zrows)
+            assert bytes_ <= K.SMEM_BLOCK_BYTES, (L, max_k, nz, m, bytes_)
+            widest = max(widest, bytes_)
+            m += 1
+    assert widest > 100_000            # L = 2, max_k = 7, m = 8
 
 
 def test_k7_shared_memory_layout():
-    """csrc/mi_turbo_digest.cu's layout at m = 10, max_k = 3, nz-uniform,
-    n = 2,048: 1,290 pairs of 16 + 4 + 1 bytes, 8 histogram slices of
-    (2 + 1)^2 27 ints, then 11 columns of 2,048 rows."""
+    """csrc/mi_turbo_digest.cu's layout at the headline's windows (m = 7,
+    max_k = 3, nz-uniform, L = 3): U = 63 subsets of 3, 9 and 27 strata
+    (1,155 columns), 287 distinct pairs, A of 28 rows in 2 M-tiles, so 8
+    warps of 2 x 8 tiles; three passes of 64, 62 and 21 N-tiles (at most
+    512 columns a pass: subsets 0-38, 39-56, 57-62); 287 pairs of 16 + 4 +
+    1 bytes, 8 histogram slices of (2 + 1)^2 27 ints, 8 warps' B columns
+    (8 N-tiles of 8 columns, 8 bytes each), 39 subset descriptors of 8
+    ints, 8 column references and flags, then the slab of 32 rows of 520
+    ints, larger than the ring (3 x 8 rows) and two buffers of A (32 rows)
+    and of 39 subsets' codes and a zero row, 144 bytes a row."""
+    tpl = _turbo_mxu_template(7, 3)
+    pj, pu, _ = tct._turbo_pairs(tpl["jb"], tpl["ub"], tpl["U"])
+    plan = K.k7_plan(7, 3, 2, tpl["klen"], pj, pu)
+    assert tpl["U"] == 63 and plan.colo[-1] == 1155
+    assert plan.passes.tolist() == [[0, 7, 0, 39], [0, 7, 39, 57],
+                                    [0, 7, 57, 63]]
+    assert [plan.cols(u0, u1) for _, _, u0, u1 in plan.passes] == [
+        (0, 512), (504, 1000), (992, 1160)]
+    assert plan.rows(0, 7) == (0, 32)
+    # each pass lists the pairs of its subsets, every pair once
+    assert plan.poffs.tolist()[0] == 0 and plan.poffs[-1] == len(pj) == 287
+    assert sorted(plan.ppairs.tolist()) == list(range(287))
+    for i, (_, _, u0, u1) in enumerate(plan.passes.tolist()):
+        got = pu[plan.ppairs[plan.poffs[i]:plan.poffs[i + 1]]]
+        assert ((got >= u0) & (got < u1)).all()
+    assert (plan.mtw, plan.warps, plan.zrows) == (2, 8, 39)
+    assert K.k7_slab_stride(64) == 520 and K.k7_slab_stride(21) == 200
+    assert plan.cg_ints == 32 * 520
     hist = K.k7_hist_ints(3, 3, 2)
     assert hist == 243
-    head = 16 * 1290 + 4 * 8 * 243 + 5 * 1290
-    head = -(-head // 16) * 16
-    assert K.k7_smem_bytes(2048, 10, 1290, hist, False) == head
-    assert K.k7_smem_bytes(2048, 10, 1290, hist, True) == head + 11 * 2048
-    assert K.k7_smem_bytes(2047, 2, 2, K.k7_hist_ints(2, 1, 0), True) == (
-        -(-(16 * 2 + 4 * 2 * 18 + 5 * 2) // 16) * 16 + 3 * 2048)
+    head = -(-(21 * 287) // 16) * 16
+    head = -(-(head + 4 * 8 * 243) // 16) * 16 + 8 * 8 * 64 + 32 * 39
+    head = -(-(head + 5 * 8) // 16) * 16
+    streams = (3 * 8 + 2 * 32 + 2 * 40) * 144
+    assert streams < 4 * 32 * 520
+    assert K.k7_smem_bytes(287, 8, hist, 7, 2, 32 * 520, 39) == (
+        head + 4 * 32 * 520) == 85_760
+    # two blocks an SM
+    assert 2 * 85_760 <= 227 * 1024
+    # m = 2: one pass, one N-tile, one warp
+    small = K.k7_plan(2, 3, 2, _turbo_mxu_template(2, 3)["klen"], [0, 1],
+                      [1, 0])
+    assert small.passes.tolist() == [[0, 2, 0, 2]]
+    assert (small.mtw, small.warps, small.cg_ints) == (1, 1, 16 * 40)
+    # past K7's shapes: codes past 127, or Lr > 7
+    with pytest.raises(ValueError):
+        K.k7_plan(3, 12, 0, [2], [0], [0])
+    with pytest.raises(ValueError):
+        K.k7_plan(3, 8, 0, [1], [0], [0])

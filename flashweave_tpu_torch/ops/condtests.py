@@ -760,15 +760,20 @@ class CondTestEngine:
             else:
                 stat, df, n_obs, suff = self._mi_sharded(X, Y, Zs, kvec)
                 df, suff = df.to(torch.int64), suff != 0
+            both = self._upload(np.stack([counts, np.cumsum(counts)]))
             return kernels.mi_window_digest(
-                stat, df, n_obs, suff, self._upload(counts), B,
-                math.log(alpha), (self.L - 1) ** 2 * self.S_hist)
+                stat, df, n_obs, suff, both[0], B, math.log(alpha),
+                (self.L - 1) ** 2 * self.S_hist, ends=both[1])
 
     def mi_tests_finish_digest(self, handle):
         """(exit_e int64, wstat float64, wpval float64) per candidate, flat
         over the round, from a :meth:`mi_tests_begin_digest` handle: one
-        device-to-host copy."""
+        device-to-host copy.  Raises where K6 marked a segment whose
+        running sums disagree with its count (NaN)."""
         out = handle.cpu().numpy()
+        if np.isnan(out[0]).any():
+            raise RuntimeError("K6: segments whose running sums are not "
+                               "their counts")
         return out[0].astype(np.int64), out[1], out[2]
 
     def turbo_tests_begin(self, m: int, Ts: np.ndarray, cands: np.ndarray,

@@ -91,6 +91,11 @@ K4_SCRATCH_BYTES = 1 << 30
 K5_TEST_BYTES = 32 << 10
 # a block's shared memory on sm_90 (227 KB; csrc/mi_turbo_digest.cu)
 SMEM_BLOCK_BYTES = 232_448
+# K6's tests a block (csrc/mi_window_digest.cu's TILE_MIN .. TILE_MAX) and
+# its scratch a tile: two partial digests of 16 bytes and an int32
+K6_TILE_MAX = 2048
+K6_TILE_MIN = 256
+K6_SCRATCH_TILE_BYTES = 36
 # K7's warps a window at most (csrc/mi_turbo_digest.cu's MAX_WARPS), the
 # 16 x 8 accumulator tiles a warp holds (ACC_TILES), the M-tiles of a pass
 # (MAX_MTW), the largest Lr (MAX_LR: a candidate's Lr^2 rows within
@@ -204,8 +209,12 @@ def load_library():
         lib.fw_mi_cond_stats.restype = i32
         i64 = ctypes.c_longlong
         lib.fw_mi_window_digest.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, f64, ptr, ptr, ptr]
+            ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, f64, ptr, ptr,
+            ptr, ptr]
         lib.fw_mi_window_digest.restype = i32
+        lib.fw_digest_core_check.argtypes = [i64, ctypes.c_ulonglong, ptr,
+                                             ptr]
+        lib.fw_digest_core_check.restype = i32
         lib.fw_mi_turbo_smem_bytes.argtypes = [i32] * 7
         lib.fw_mi_turbo_smem_bytes.restype = i32
         lib.fw_mi_turbo_digest.argtypes = [
@@ -704,7 +713,17 @@ def mi_window_digest_ref(stat, df, n_obs, suff, counts, B, log_alpha, max_df):
     return ct._mi_digest(stat, df, n_obs, suff, counts, B, log_alpha, max_df)
 
 
-def mi_window_digest(stat, df, n_obs, suff, counts, B, log_alpha, max_df):
+def k6_tile(B: int, sms: int) -> int:
+    """K6's tests a block: K6_TILE_MAX, halved down to K6_TILE_MIN while
+    B tests would fill fewer than two blocks an SM of ``sms``."""
+    tile = K6_TILE_MAX
+    while tile > K6_TILE_MIN and -(-B // tile) < 2 * sms:
+        tile //= 2
+    return tile
+
+
+def mi_window_digest(stat, df, n_obs, suff, counts, B, log_alpha, max_df,
+                     ends=None):
     """The per-candidate digest of B conditional MI tests in NC contiguous
     segments of ``counts`` (NC,) int64 tests: each test's float64 log p
     (``statfuns.mi_logpval_smalldf`` for df <= max_df, 0 where ``suff`` is
@@ -714,11 +733,19 @@ def mi_window_digest(stat, df, n_obs, suff, counts, B, log_alpha, max_df):
 
     Args:
       stat, n_obs: (B,) float64; df: (B,) int64; suff: (B,) bool.
+      ends: (NC,) int64, the running sums of ``counts`` on the same device,
+        which K6 needs (the engine uploads both from the host in one copy)
+        and the plain version does without.  K6 holds each segment's length
+        by ``ends`` to its count and writes NaN in all three rows of a
+        segment where they differ; on the CPU a mismatch raises.
     Returns (3, NC) float64 [exit_e, wstat, exp(M)].  CUDA tensors run K6
-    (one launch, and a running sum of ``counts``); CPU tensors run the
-    plain version."""
+    (its tile kernel and, past one tile, its merge kernel: one launch
+    counted); CPU tensors run the plain version."""
     dev = stat.device
     if dev.type == "cpu":
+        if ends is not None and not torch.equal(ends, torch.cumsum(counts,
+                                                                   0)):
+            raise ValueError("ends are not the running sums of counts")
         return mi_window_digest_ref(stat, df, n_obs, suff, counts, B,
                                     log_alpha, max_df)
     if dev.type != "cuda":
@@ -730,6 +757,9 @@ def mi_window_digest(stat, df, n_obs, suff, counts, B, log_alpha, max_df):
                         ("suff", suff, torch.bool)):
         _check_tensor(name, t, dt, (B,), dev)
     _check_tensor("counts", counts, torch.int64, (NC,), dev)
+    if ends is None:
+        raise ValueError("K6 needs ends, the running sums of counts")
+    _check_tensor("ends", ends, torch.int64, (NC,), dev)
     if max_df < 0:
         raise ValueError(f"K6: max_df={max_df}")
     out = torch.empty((3, NC), dtype=torch.float64, device=dev)
@@ -737,21 +767,45 @@ def mi_window_digest(stat, df, n_obs, suff, counts, B, log_alpha, max_df):
         return out
     if B <= 0:
         raise ValueError("K6: candidates without tests")
-    ends = torch.cumsum(counts, 0)
+    tile = k6_tile(B, torch.cuda.get_device_properties(dev)
+                   .multi_processor_count)
+    tiles = -(-B // tile)
+    scratch = torch.empty(tiles * K6_SCRATCH_TILE_BYTES, dtype=torch.uint8,
+                          device=dev)
     lg = _lgamma_table(max_df, dev)
     lib, _ = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fw_mi_window_digest(
             stat.data_ptr(), df.data_ptr(), n_obs.data_ptr(), suff.data_ptr(),
-            counts.data_ptr(), ends.data_ptr(), int(B), NC, int(max_df), float(log_alpha),
-            lg.data_ptr(), out.data_ptr(), stream)
+            counts.data_ptr(), ends.data_ptr(), int(B), NC, int(max_df), tile, float(log_alpha),
+            lg.data_ptr(), scratch.data_ptr(), out.data_ptr(), stream)
     _check_cuda_error(lib, err, "mi_window_digest launch")
     mi_window_digest.launches += 1
     return out
 
 
 mi_window_digest.launches = 0
+
+
+def digest_core_check(n: int, seed: int, device) -> dict:
+    """``csrc/mi_digest_core_check.cu`` on the card: the exp and log main
+    paths that K6 and K7 run in each logsumexp step (``mi_digest.cuh``'s
+    ``fw_digest::core``) against libdevice's exp() and log(), on n inputs
+    each drawn from ``seed``.  Returns the inputs and mismatches of each."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the check runs on a CUDA device, not {dev}")
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    lib, _ = load_library()
+    with torch.cuda.device(dev):
+        err = lib.fw_digest_core_check(
+            int(n), int(seed), counts.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _check_cuda_error(lib, err, "digest_core_check launch")
+    ne, be, nl, bl = counts.tolist()
+    return {"exp_inputs": ne, "exp_mismatches": be, "log_inputs": nl,
+            "log_mismatches": bl}
 
 
 @dataclass

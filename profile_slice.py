@@ -46,15 +46,16 @@ KERNEL_NAMES = {"mi_univar_stats": "mi_univar_stats_kernel",
                 "pair_ctab_planes": "mi_pair_ctabs_kernel",
                 "mi_univar_stats_planes": "mi_univar_stats_planes_",
                 "mi_cond_stats": "mi_cond_stats_kernel",
-                "mi_window_digest": "mi_window_digest_kernel",
+                "mi_window_digest": "mi_window_digest_",
                 "mi_turbo_digest": "mi_turbo_digest_kernel"}
 
 
 def hand_kernels(cuda, launches):
     """Device ms and profiler launches of each hand kernel of the library
-    (``KERNEL_NAMES``; K4's count and epilogue kernels together) beside the
-    wrapper's own launch count ``launches`` (one K4 call may launch several
-    sub-blocks)."""
+    (``KERNEL_NAMES``; K4's count and epilogue kernels together, K6's tile
+    and merge kernels together) beside the wrapper's own launch count
+    ``launches`` (one K4 call may launch several sub-blocks, one K6 call
+    two kernels)."""
     out = {}
     for name, calls in launches.items():
         hits = [e for e in cuda if KERNEL_NAMES[name] in e.key]

@@ -235,15 +235,36 @@ def test_chip_smoke_sass_counts_and_fp64_ops():
     smoke.LOGP_OPS.update({c: 1 for c in smoke.FP64_CALLS})
     df = np.array([0, 1, 2, 4, 5, 7, 9, 200])
     suff = np.array([True] * 7 + [True])
-    # 0, 4, 2, 9 * 2 - 7, 9 * 2 + 6, 9 * 3 + 6, 9 * 4 + 6, past max_df 0;
-    # two a test
+    # a logsumexp step 5 (an exp, a log, three sums), a chain step 7: df 0
+    # none; 1 x and log erfc(sqrt x) 4; 2 x and a log 2; 4 2 + a first step
+    # (6) + a sum; 5, 7, 9 2 + the first term (2) + 1, 2, 3 chain steps +
+    # log erfc (3) + a sum + a last step (5); past max_df none; two a test
     assert smoke.logp_fp64_ops(df, suff, 108) == (
-        0 + 4 + 2 + 11 + 24 + 33 + 42 + 0 + 2 * 8)
+        0 + 4 + 2 + 9 + 20 + 27 + 34 + 0 + 2 * 8)
     assert smoke.logp_fp64_ops(df, ~suff, 108) == 2 * 8
     smoke.LOGP_OPS.update(exp=20, log=30)
-    # a step of the even chain: two exp and a log beside six operations
+    # a step of the even chain: one exp and a log beside five operations
     assert (smoke.logp_fp64_ops([6], [True], 108)
-            - smoke.logp_fp64_ops([4], [True], 108)) == 2 * 20 + 30 + 6
+            - smoke.logp_fp64_ops([4], [True], 108)) == 20 + 30 + 5
+
+
+def test_chip_smoke_k6_lane_use():
+    """chip_smoke.py's lane use of K6's layouts: one df everywhere keeps
+    every lane busy in the sorted tiles, and segments of one test leave 31
+    of a warp's 32 lanes idle a segment; two chain lengths alternating test
+    by test are sorted apart (up to the tile's one mixed warp) but cost a
+    warp a segment its dearer one."""
+    smoke = _smoke_module()
+    smoke.LOGP_OPS.update({c: 1 for c in smoke.FP64_CALLS})
+    B = 4096
+    df, suff = np.full(B, 3), np.ones(B, bool)
+    got = smoke.k6_lane_use(df, suff, 108, np.ones(B, np.int64), 256)
+    assert got == {"sorted": 1.0, "by_segment": 1 / 32}
+    df[1::2] = 27
+    ops = smoke.logp_test_ops(np.array([3, 27]), [True, True], 108)
+    got = smoke.k6_lane_use(df, suff, 108, np.full(B // 64, 64), 256)
+    assert got["sorted"] == pytest.approx(1.0)
+    assert got["by_segment"] == pytest.approx(ops.sum() / (2 * ops.max()))
 
 
 @pytest.mark.parametrize("nz", [0, 2])

@@ -135,7 +135,8 @@ def test_port_runs_with_jax_blocked():
 def test_no_jax_import_in_port_sources():
     files = sorted((ROOT / "flashweave_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "profile_slice.py",
-              ROOT / "kernel_levels.py", ROOT / "lgl_scale.py"]
+              ROOT / "kernel_levels.py", ROOT / "lgl_scale.py",
+              ROOT / "k6_variants.py"]
     pat = re.compile(r"^\s*(import|from)\s+(jax(lib)?|flashweave_tpu)\b(?!_)",
                      re.M)
     hits = [str(f) for f in files if pat.search(f.read_text())]

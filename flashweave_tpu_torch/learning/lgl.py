@@ -8,7 +8,8 @@ weight assembly into the final symmetric graph.
 The table is uploaded to the device once (:mod:`flashweave_tpu_torch.state`)
 and serves both the univariate kernel and the conditioning engine: int8
 (int16 when a value exceeds 127) with its levels, max_vals and level
-marginals for the discrete tests (levels are counted on the host by
+marginals for the discrete tests (cast, checked and counted on the device
+by :func:`_device_levels` for values 0..63, else counted on the host by
 ``utils.misc.get_levels`` / ``get_max_vals``), one contiguous float64
 tensor for fz_nz and fz.
 
@@ -55,11 +56,75 @@ from .scheduler import RoundScheduler
 VALID_PARALLEL = ("single", "single_il", "multi_ep", "multi_il")
 
 
+# the largest value the device route of _device_levels takes (the JAX
+# package's bound, flashweave_tpu/learning/lgl.py:73), and the table types
+# it uploads as they are and casts on the device (any other type is cast
+# to int8 and checked on the host first)
+DEVICE_LEVELS_MAX = 63
+DEVICE_LEVELS_DTYPES = tuple(np.dtype(t) for t in (
+    np.bool_, np.int8, np.uint8, np.int16, np.int32, np.int64, np.float16,
+    np.float32, np.float64))
+
+
+def _device_levels(data, device="cuda"):
+    """(state, levels, max_vals) of a discrete table from ONE upload, or
+    None where a value is negative, not an integer or above 63 (counterpart
+    of the JAX package's ``learning/lgl.py:_device_levels``).
+
+    The table goes to ``device`` as it is, is cast to int8 and checked
+    there (each value cast to int8 and back must be itself and not
+    negative, the largest at most 63: one transfer of the verdict).  A type
+    torch cannot hold or compare there (uint16 / uint32 / uint64, long
+    double, ...) is cast to int8 and checked against itself on the host,
+    as the JAX function does, and goes up as int8.  Levels
+    are the count of levels with a nonzero marginal of each variable and
+    max_vals its largest such level, from the (L, p) level marginals the
+    state keeps (one transfer of both).  ``state`` is the
+    :class:`..state.DiscreteState` of the int8 table that the univariate
+    pass and the conditioning engine share.  Levels and max_vals equal
+    ``get_levels`` / ``get_max_vals`` (the route the caller takes on None).
+    The JAX package takes this route on a TPU without a mesh; the port has
+    one upload path, so it takes it on every device, and a mesh replicates
+    the state as it would any other."""
+    from ..ops.kernels import level_marginals
+    from ..state import from_device_table
+
+    data = np.asarray(data)
+    if data.ndim != 2:
+        return None
+    if data.dtype not in DEVICE_LEVELS_DTYPES:
+        d8 = data.astype(np.int8)
+        if not np.array_equal(d8, data):
+            return None
+        data = d8
+    dev = resolve_device(device)
+    x = torch.from_numpy(np.ascontiguousarray(data)).to(dev)
+    d8 = x.to(torch.int8)
+    if x.numel() == 0:
+        verdict = (0, 0)
+    else:
+        bad = (d8.to(x.dtype) != x).any() | (d8 < 0).any()
+        verdict = tuple(torch.stack([bad.long(), d8.max().long()]).tolist())
+    del x
+    if verdict[0] or verdict[1] > DEVICE_LEVELS_MAX:
+        return None
+    marg = level_marginals(d8, verdict[1] + 1)
+    present = marg > 0
+    top = torch.arange(marg.shape[0], dtype=torch.int32, device=dev)
+    levels, max_vals = torch.stack([
+        present.sum(dim=0, dtype=torch.int32),
+        torch.where(present, top[:, None], 0).amax(dim=0)]).cpu().numpy()
+    return from_device_table(d8, marg, levels, max_vals), levels, max_vals
+
+
 def prepare_lgl(data, test_name, time_limit, parallel, max_k, n_obs_min, hps,
-                verbose):
+                verbose, device):
     """Parameter resolution heuristics (reference: src/learning.jl:1-81).
-    Returns (levels, max_vals, time_limit, n_obs_min); levels and max_vals
-    are None for continuous tests."""
+    Returns (levels, max_vals, time_limit, n_obs_min, state); levels and
+    max_vals are None for continuous tests.  A discrete table goes to
+    ``device`` through :func:`_device_levels` and ``state`` is its upload;
+    where that returns None, levels and max_vals come from ``get_levels`` /
+    ``get_max_vals`` on the host and ``state`` is None."""
     if time_limit == -1.0:
         if parallel == "multi_il" and max_k > 0:
             time_limit = float(round(math.log2(data.shape[1])))
@@ -70,12 +135,16 @@ def prepare_lgl(data, test_name, time_limit, parallel, max_k, n_obs_min, hps,
     if time_limit != 0.0 and not parallel.endswith("_il"):
         warnings.warn("Using time_limit without interleaved parallelism is not advised.")
 
-    levels = max_vals = None
+    levels = max_vals = state = None
     if isdiscrete(test_name):
         if verbose:
             print("Computing levels")
-        levels = get_levels(data)
-        max_vals = get_max_vals(data)
+        found = _device_levels(data, device)
+        if found is not None:
+            state, levels, max_vals = found
+        else:
+            levels = get_levels(data)
+            max_vals = get_max_vals(data)
 
     if n_obs_min < 0:
         # reference quirk: `n_obs_min < 0 & is_zero_adjusted(test_name)`
@@ -109,7 +178,7 @@ def prepare_lgl(data, test_name, time_limit, parallel, max_k, n_obs_min, hps,
                 "interaction prediction"
             )
 
-    return levels, max_vals, time_limit, n_obs_min
+    return levels, max_vals, time_limit, n_obs_min, state
 
 
 def LGL(
@@ -203,15 +272,15 @@ def _lgl_timed(
     n, p = data.shape
 
     with timer.stage("prepare"):
-        levels, max_vals, time_limit, n_obs_min = prepare_lgl(
+        levels, max_vals, time_limit, n_obs_min, state = prepare_lgl(
             data, test_name, time_limit, parallel, max_k, n_obs_min, hps,
-            verbose,
+            verbose, dev,
         )
         # ONE upload serves the univariate pass and the engine
-        if isdiscrete(test_name):
-            state = from_numpy_state(data, levels, max_vals, dev)
-        else:
+        if not isdiscrete(test_name):
             state = from_numpy_continuous(data, dev)
+        elif state is None:
+            state = from_numpy_state(data, levels, max_vals, dev)
 
     if all_univar_nbrs is None:
         if verbose:

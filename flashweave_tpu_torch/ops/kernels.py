@@ -42,6 +42,13 @@
   then ``condtests._mi_digest``).  K6 and K7 share the log p and the reduction
   (``csrc/mi_digest.cuh``); K5 and K7 the G-test epilogue
   (``csrc/mi_cond_epilogue.cuh``).
+- K8, the univariate extraction sweep (``csrc/mi_univar_extract.cu``),
+  replaces the per-block bodies of the JAX package's extraction passes
+  ``flashweave_tpu/ops/univariate.py:_passA_fn`` / ``_passB_fn``, XLA
+  functions.  :func:`univar_extract` is its wrapper (one block into an
+  :class:`ExtractBuffers` of the sweep), :func:`univar_extract_ref` its
+  plain version (``univariate._pair_scores``, then ``torch.nonzero``).
+  K8 computes the mi log p with K6's ``csrc/mi_digest.cuh``.
 - On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
   tensor it runs the plain version.  Each counts its launches in
   ``<wrapper>.launches``; :func:`launch_counts` reports them all.
@@ -64,6 +71,7 @@ import time
 from dataclasses import dataclass, field
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from .contingency import pair_ctab_block
@@ -112,6 +120,11 @@ K7_CHUNK = 128
 K7_WINDOW = K7_CHUNK + 16
 K7_STAGES = 3
 K7_ZDESC_INTS = 8
+# K8's bin edges (csrc/mi_univar_extract.cu's N_EDGES; the extraction's
+# N_EXTRACT_BINS) and its tally: the cursor, the unreliable pairs, a count
+# an edge
+K8_EDGES = 48
+K8_TALLY = 2 + K8_EDGES
 
 
 @dataclass
@@ -222,6 +235,10 @@ def load_library():
             ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
             i32, i32, i32, f64, f64, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
         lib.fw_mi_turbo_digest.restype = i32
+        lib.fw_univar_extract.argtypes = [
+            i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f64, i32,
+            i32, ptr, ptr, i64, ptr, ptr, ptr, ptr, ptr, i32, ptr]
+        lib.fw_univar_extract.restype = i32
         lib.fw_cuda_error_string.argtypes = [i32]
         lib.fw_cuda_error_string.restype = ctypes.c_char_p
         _library = (lib, info)
@@ -1117,9 +1134,162 @@ def mi_turbo_digest(st, Ts, C, consts, hps, max_k, nz, log_alpha, max_df,
 
 mi_turbo_digest.launches = 0
 
+# ---------------------------------------------------------------------------
+# K8: the univariate extraction sweep
+# ---------------------------------------------------------------------------
+
+class ExtractBuffers:
+    """What one sweep of the univariate extraction accumulates on a device,
+    block by block (:func:`univar_extract`): ``tally`` (K8_TALLY,) int64,
+    [candidates so far, unreliable pairs, the candidates below each edge],
+    and each candidate's (X int32, Y int32, log p float64, stat float64) in
+    ``cap`` slots (the candidates past ``cap`` are counted, not kept).
+    ``edges`` (numpy, K8_EDGES strictly decreasing log p-values, or None:
+    no edge counts) and the lgamma offsets of ``max_df`` go up here, once a
+    sweep, so no block of the sweep copies from the host."""
+
+    def __init__(self, cap: int, device, edges=None, max_df: int = 0):
+        dev = torch.device(device)
+        self.cap = int(cap)
+        self.X = torch.empty(self.cap, dtype=torch.int32, device=dev)
+        self.Y = torch.empty(self.cap, dtype=torch.int32, device=dev)
+        self.logp = torch.empty(self.cap, dtype=torch.float64, device=dev)
+        self.stat = torch.empty(self.cap, dtype=torch.float64, device=dev)
+        self.tally = torch.zeros(K8_TALLY, dtype=torch.int64, device=dev)
+        self.edges = None
+        if edges is not None:
+            e = np.asarray(edges, dtype=np.float64)
+            if e.shape != (K8_EDGES,) or not (np.diff(e) < 0).all():
+                raise ValueError(f"K8 needs {K8_EDGES} strictly decreasing "
+                                 "edges")
+            self.edges = torch.from_numpy(e).to(dev)
+        self.max_df = int(max_df)
+        self.lg = _lgamma_table(self.max_df, dev)
+        self.kept = 0           # the plain version's cursor, on the host
+
+    @property
+    def device(self) -> torch.device:
+        return self.tally.device
+
+    def candidates(self, kept: int):
+        """The first ``kept`` candidates: (X, Y, log p, stat)."""
+        return [c[:kept] for c in (self.X, self.Y, self.logp, self.stat)]
+
+
+def univar_extract_ref(buf, front, outs, s, y0, thresh, reliable,
+                       max_df=0):
+    """Plain PyTorch version of K8: ``univariate._pair_scores`` on the
+    block, ``torch.nonzero`` of its candidates (in row-major order, at the
+    cursor) and their counts below each edge.  Arguments as
+    :func:`univar_extract`."""
+    from .univariate import _pair_scores
+
+    rf = torch.profiler.record_function
+    with rf("uv_scores"):
+        logp, stat, n_unrel = _pair_scores(front, outs, s, y0, reliable,
+                                           max_df)
+    with rf("uv_nonzero"):
+        idx = torch.nonzero(logp.view(-1) < thresh).squeeze(1)
+        lp = logp.view(-1)[idx]
+    q = logp.shape[1]
+    at, n = buf.kept, idx.numel()
+    keep = max(0, min(n, buf.cap - at))
+    if keep:
+        i = idx[:keep]
+        buf.X[at:at + keep] = ((i // q) + s).to(torch.int32)
+        buf.Y[at:at + keep] = ((i % q) + y0).to(torch.int32)
+        buf.logp[at:at + keep] = lp[:keep]
+        buf.stat[at:at + keep] = stat.reshape(-1)[i]
+    buf.kept += n
+    buf.tally[0] += n
+    buf.tally[1] += n_unrel
+    if buf.edges is not None:
+        with rf("uv_counts"):
+            buf.tally[2:] += (lp[:, None] < buf.edges[None, :]).sum(dim=0)
+
+
+def _check_extract_args(buf, front, outs, max_df):
+    dev = outs[0].device
+    if buf.device != dev:
+        raise ValueError(f"the sweep's buffers are on {buf.device}, the "
+                         f"block on {dev}")
+    t, q = outs[0].shape
+    if front == "mi":
+        names = (("stat", torch.float64), ("df", torch.int32),
+                 ("n_obs", torch.int32), ("suff", torch.bool))
+        if max_df != buf.max_df:
+            raise ValueError(f"K8: max_df={max_df}, the sweep's lgamma "
+                             f"offsets are for {buf.max_df}")
+    elif front == "given":
+        names = (("logp", torch.float64), ("stat", torch.float64),
+                 ("suff", torch.bool))
+    else:
+        raise ValueError(f"K8 has no front {front!r}")
+    if len(outs) != len(names):
+        raise ValueError(f"K8's {front} front takes {len(names)} tensors")
+    for (name, dt), x in zip(names, outs):
+        shape = (t, q)
+        if name == "suff" and front == "given" and x.dim() == 0:
+            shape = ()
+        _check_tensor(name, x, dt, shape, dev)
+    if t >= 1 << 31 or q >= 1 << 31:
+        raise ValueError("K8 takes fewer than 2^31 rows and columns")
+
+
+def univar_extract(buf, front, outs, s, y0, thresh, reliable, max_df=0):
+    """One (t, q) block of a sweep of the univariate extraction,
+    accumulated into ``buf`` (:class:`ExtractBuffers`): X = s + row,
+    Y = y0 + column; a pair where X < Y; unreliable where its power check
+    failed or its log p is NaN, and then log p +inf (``reliable``) or 0; a
+    candidate where log p < ``thresh``.  Adds the candidates, the
+    unreliable pairs and (where ``buf`` has edges) the candidates below
+    each edge to ``buf.tally`` and stores each candidate at its slot below
+    ``buf.cap``.
+
+    front "mi": ``outs`` = (stat float64, df int32, n_obs int32, suff bool)
+    of K1 / K4, log p ``statfuns.mi_logpval_smalldf`` at ``max_df`` (the
+    buffers' lgamma offsets); "given": (log p float64, stat float64, suff
+    bool, (t, q) or 0-dim).  CUDA tensors run K8 (its candidates in no
+    fixed order; nothing synchronises with the host); CPU tensors run the
+    plain version (in row-major order)."""
+    dev = outs[0].device
+    if dev.type == "cpu":
+        return univar_extract_ref(buf, front, outs, s, y0, thresh, reliable,
+                                  max_df)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check_extract_args(buf, front, outs, max_df)
+    t, q = outs[0].shape
+    if t == 0 or q == 0:
+        return None
+    if front == "mi":
+        stat, df, nobs, suff = outs
+        logp = None
+    else:
+        logp, stat, suff = outs
+        df = nobs = None
+    lib, _ = load_library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ptr = (lambda x: None if x is None else x.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fw_univar_extract(
+            0 if front == "mi" else 1, stat.data_ptr(), ptr(logp), ptr(df),
+            ptr(nobs), suff.data_ptr(), int(suff.dim() == 0), t, q, int(s),
+            int(y0), float(thresh), int(bool(reliable)), int(max_df),
+            buf.lg.data_ptr(), ptr(buf.edges), buf.cap, buf.tally.data_ptr(),
+            buf.X.data_ptr(), buf.Y.data_ptr(), buf.logp.data_ptr(),
+            buf.stat.data_ptr(), sms, stream)
+    _check_cuda_error(lib, err, "univar_extract launch")
+    univar_extract.launches += 1
+    return None
+
+
+univar_extract.launches = 0
+
 _WRAPPERS = (mi_univar_stats, fz_nz_stats, pair_ctab_planes,
              mi_univar_stats_planes, mi_cond_stats, mi_window_digest,
-             mi_turbo_digest)
+             mi_turbo_digest, univar_extract)
 
 
 def reset_launch_counts() -> None:

@@ -22,10 +22,13 @@ the CPU:
   block, as the JAX package computes it outside any Pallas kernel.
 
 By default the blocks never leave the device (:func:`_extract`): each
-block's float64 log p-values (``statfuns.mi_logpval_smalldf`` /
-``fz_logpval``) are computed beside its kernel outputs, only the candidate
-pairs below a BH-safe edge are kept, Benjamini-Hochberg runs in log space
-over them on the device, and only the significant pairs reach the host.
+block's outputs go through K8 (:func:`..ops.kernels.univar_extract`, one
+launch a block, no host sync inside a sweep), which computes the mi /
+mi_nz float64 log p-values (``statfuns.mi_logpval_smalldf``; fz and fz_nz
+take ``fz_logpval``, plain PyTorch, :func:`_given_scores`) and keeps only
+the candidate pairs below a BH-safe edge; Benjamini-Hochberg runs in log
+space over them on the device, and only the significant pairs reach the
+host.
 ``return_result=True`` keeps the host path: every block condensed on the
 host into p^2/2 float64 vectors, scipy p-values and BH there (the
 reference keeps all statistics in Float64).  fz also takes the host path
@@ -45,6 +48,8 @@ dicts are the same.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import math
 from typing import Dict, Optional
 
@@ -52,9 +57,9 @@ import numpy as np
 import torch
 
 from . import statfuns as sf
-from .kernels import (K1_LEVELS, PLANES_LEVELS, fz_nz_stats, mi_univar_stats,
-                      mi_univar_stats_planes, mi_univar_stats_ref,
-                      pair_ctab_planes)
+from .kernels import (K1_LEVELS, PLANES_LEVELS, ExtractBuffers, fz_nz_stats,
+                      mi_univar_stats, mi_univar_stats_planes,
+                      mi_univar_stats_ref, pair_ctab_planes, univar_extract)
 from ..parallel.mesh import gather, psum, put_replicated
 from ..types import PSortedNbrs
 from ..utils.misc import is_zero_adjusted, isdiscrete
@@ -371,10 +376,13 @@ class _ShardedBlocks:
 
 
 def _bind(bind, tables, mesh):
-    """``bind(*tables)`` without a mesh; with one, :class:`_ShardedBlocks`
-    of ``bind`` over each shard's replicas of ``tables``."""
+    """``bind(*tables)`` without a mesh, with the device of ``tables[0]``
+    as its ``device``; with one, :class:`_ShardedBlocks` of ``bind`` over
+    each shard's replicas of ``tables``."""
     if mesh is None:
-        return bind(*tables)
+        block = bind(*tables)
+        block.device = tables[0].device
+        return block
     reps = zip(*(put_replicated(t, mesh) for t in tables))
     return _ShardedBlocks(mesh, [bind(*r) for r in reps])
 
@@ -511,8 +519,9 @@ def _fz_nz_pass(block, p, tile_sz, n_obs_min):
 #            extraction refuses; it never returns a truncated set.
 #
 # (The JAX package's _extract_scan always runs both sweeps, with per-block
-# caps and chunk compaction that XLA's static shapes need; here a boolean
-# mask and torch.nonzero give exact sizes.)
+# caps and chunk compaction that XLA's static shapes need; here K8 appends
+# each block's candidates at a cursor in device memory, and its counts and
+# cursor cross to the host once a sweep.)
 # ---------------------------------------------------------------------------
 
 N_EXTRACT_BINS = 48
@@ -550,28 +559,34 @@ def _select_bin(counts: np.ndarray, m: float, alpha: float,
     return len(edges) - 1
 
 
-def _block_scores(kind, outs, s, y_start, reliable, n_obs_min=0.0,
-                  max_df=0):
-    """One block's kernel outputs reduced to extraction scores.
+def _given_scores(outs, n_obs_min=0.0):
+    """The log p-values of an fz / fz_nz block's (r, N) (its front "given"
+    of K8): (log p, stat, suff) with suff = N >= n_obs_min and stat r, or 0
+    where it fails (for fz, N is the 0-dim row count, so that either every
+    pair is reliable or none is)."""
+    r, N = outs
+    suff = N >= n_obs_min
+    stat = torch.where(suff, r, 0.0)
+    return sf.fz_logpval(stat, N, 0), stat, suff
 
-    ``outs`` is (stat, df, n_obs, suff) for kind "mi" and (r, N) for
-    "fz_nz" and "fz" (stat forced to 0 and the pair unreliable where
-    N < n_obs_min; for fz, N is the 0-dim row count, so that either every
-    pair is reliable or none is).
-    Returns (logp, stat, n_unreliable): logp is the float64 log p-value,
-    +inf where the slot is no pair (X >= Y) and, for an unreliable pair,
-    +inf with ``reliable`` (correct_reliable_only) and 0 (p = 1) without.
-    A NaN log p-value (a zero-variance correlation) counts as unreliable, as
-    the host path drops NaN p-values from BH's m (the JAX package's
-    extraction does not: ROADMAP queue 3)."""
-    if kind == "mi":
+
+def _pair_scores(front, outs, s, y_start, reliable, max_df=0):
+    """One block's outputs reduced to extraction scores.
+
+    ``outs`` is (stat, df, n_obs, suff) of the block function for front
+    "mi" (log p ``statfuns.mi_logpval_smalldf``), (log p, stat, suff) of
+    :func:`_given_scores` for front "given".  Returns (logp, stat,
+    n_unreliable): logp is the float64 log p-value, +inf where the slot is
+    no pair (X >= Y) and, for an unreliable pair, +inf with ``reliable``
+    (correct_reliable_only) and 0 (p = 1) without.  A NaN log p-value (a
+    zero-variance correlation) counts as unreliable, as the host path drops
+    NaN p-values from BH's m (the JAX package's extraction does not:
+    ROADMAP queue 3)."""
+    if front == "mi":
         stat, df, n_obs, suff = outs
         logp = sf.mi_logpval_smalldf(stat, df, n_obs, max_df)
-    else:                                 # "fz_nz" and "fz"
-        r, N = outs
-        suff = N >= n_obs_min
-        stat = torch.where(suff, r, 0.0)
-        logp = sf.fz_logpval(stat, N, 0)
+    else:
+        logp, stat, suff = outs
     t, q = logp.shape
     dev = logp.device
     valid = (torch.arange(s, s + t, device=dev)[:, None]
@@ -594,77 +609,195 @@ def _units(block, blocks):
             yield block, 0, s, t, y_start, y_len
 
 
-def _add(total, x):
-    return x if total is None else total + x.to(total.device)
+# set to "error" (or "warn") to run every sweep's block loop under
+# torch.cuda.set_sync_debug_mode, so that a host sync inside a sweep on the
+# card raises (or warns); None leaves the mode alone
+SWEEP_SYNC_DEBUG = None
+
+
+@contextlib.contextmanager
+def _sync_debug(devices):
+    if SWEEP_SYNC_DEBUG is None or not any(d.type == "cuda"
+                                           for d in devices):
+        yield
+        return
+    saved = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(SWEEP_SYNC_DEBUG)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(saved)
 
 
 def _sweep(kind, block, blocks, thresh, reliable, n_obs_min, max_df,
            edges=None, calls=None):
-    """One pass over the blocks, keeping the candidates (logp < thresh)
-    while their total stays within EXTRACT_BUDGET.  With ``edges`` (numpy) it
-    also counts, in int64 on the device, the log p-values below each edge
-    and the unreliable pairs.  ``calls`` (a list a local shard) receives
-    the block calls of each shard.
+    """One pass over the blocks through K8
+    (:func:`..ops.kernels.univar_extract`), each local shard into its own
+    :class:`..ops.kernels.ExtractBuffers`, sized min(EXTRACT_BUDGET, its
+    slots): the candidates (logp < thresh) and, with ``edges`` (numpy),
+    the log p-values below each edge and the unreliable pairs.  ``calls``
+    (a list a local shard) receives the block calls of each shard.  On the
+    card nothing inside the loop waits for the host; the tallies cross in
+    one transfer at its end.
 
     Returns (n_candidates, candidates, counts, n_unreliable); candidates
     are (X int32, Y int32, logp, stat) on the device, or None past the
-    budget or when there are none.  Each block syncs with the host once, in
-    torch.nonzero.  Under a mesh the counts and n_candidates are summed
-    over every shard, and the candidates gathered onto the primary device,
-    on every process."""
+    budget or when there are none; counts (numpy int64) and n_unreliable
+    (int) are None without ``edges``.  Under a mesh the counts and
+    n_candidates are summed over every shard, and the candidates gathered
+    onto the primary device, on every process."""
     mesh = block.mesh if isinstance(block, _ShardedBlocks) else None
-    kept, parts = 0, []
-    counts = unrel = None
-    for fn, i, s, t, y0, ylen in _units(block, blocks):
-        logp, stat, n_unrel = _block_scores(kind, fn(s, t, y0, ylen), s, y0,
-                                            reliable, n_obs_min, max_df)
-        if calls is not None:
-            calls[i] += 1
-        idx = torch.nonzero(logp.view(-1) < thresh).squeeze(1)
-        lp = logp.view(-1)[idx]
-        if edges is not None:
-            e = torch.as_tensor(edges, dtype=torch.float64, device=lp.device)
-            counts = _add(counts, (lp[:, None] < e[None, :]).sum(dim=0))
-            unrel = _add(unrel, n_unrel)
-        kept += idx.numel()
-        if parts is not None and kept > EXTRACT_BUDGET:
-            parts = None                  # past the budget: count only
-        if parts is not None:
-            parts.append((((idx // ylen) + s).to(torch.int32),
-                          ((idx % ylen) + y0).to(torch.int32), lp,
-                          stat.reshape(-1)[idx]))
-        del logp, stat, lp, idx
+    devices = mesh.devices if mesh is not None else (block.device,)
+    units = list(_units(block, blocks))
+    slots = [0] * len(devices)
+    for _, i, _, t, _, ylen in units:
+        slots[i] += t * ylen
+    front = "mi" if kind == "mi" else "given"
+    bufs = [ExtractBuffers(min(EXTRACT_BUDGET, n), dev, edges,
+                           max_df if front == "mi" else 0)
+            for n, dev in zip(slots, devices)]
+    rf = torch.profiler.record_function
+    with _sync_debug(devices):
+        for fn, i, s, t, y0, ylen in units:
+            with rf("uv_block"):
+                outs = fn(s, t, y0, ylen)
+            if front == "given":
+                with rf("uv_given"):
+                    outs = _given_scores(outs, n_obs_min)
+            with rf("uv_extract"):
+                univar_extract(bufs[i], front, outs, s, y0, thresh, reliable,
+                        max_df)
+            if calls is not None:
+                calls[i] += 1
+            del outs
+    with rf("uv_tally"):
+        tallies = torch.stack([b.tally.to(devices[0]) for b in bufs])
+        if mesh is not None:
+            total = psum(mesh, tallies.sum(dim=0))
+            tallies = torch.cat([total[None], tallies])
+        tallies = tallies.cpu().numpy()             # the one transfer
+    tot = tallies[0] if mesh is not None else tallies.sum(axis=0)
+    kept = int(tot[0])
+    counts = tot[2:] if edges is not None else None
+    unrel = int(tot[1]) if edges is not None else None
     if mesh is not None:
-        return _mesh_totals(mesh, kept, parts, counts, unrel, edges)
-    if parts is not None:
-        parts = [torch.cat(c) for c in zip(*parts)] if parts else None
-    return kept, parts, counts, unrel
+        return _mesh_totals(mesh, kept, bufs, tallies[1:], counts, unrel)
+    cand = bufs[0].candidates(kept) if 0 < kept <= EXTRACT_BUDGET else None
+    return kept, cand, counts, unrel
 
 
-def _mesh_totals(mesh, kept, parts, counts, unrel, edges):
-    """:func:`_sweep`'s results summed over every shard of ``mesh`` (the
-    JAX package's psum of pass A's counts): the global candidate count
-    decides the budget on every process alike, and within it the
-    candidates are gathered device-major onto the primary device."""
-    dev = mesh.primary
-    kept = int(psum(mesh, torch.tensor([kept], dtype=torch.int64,
-                                       device=dev)))
-    if edges is not None:
-        zero = torch.zeros(len(edges), dtype=torch.int64, device=dev)
-        counts = psum(mesh, zero if counts is None else counts)
-        unrel = psum(mesh, zero[0] if unrel is None else unrel)
+def _mesh_totals(mesh, kept, bufs, tallies, counts, unrel):
+    """:func:`_sweep`'s candidates on a mesh: the global candidate count
+    ``kept`` (the JAX package's psum of pass A's counts) decides the budget
+    on every process alike, and within it each local shard's candidates
+    (its buffers' first ``tallies[:, 0]``) are gathered device-major onto
+    the primary device."""
     if kept == 0 or kept > EXTRACT_BUDGET:
         return kept, None, counts, unrel
-    dtypes = (torch.int32, torch.int32, torch.float64, torch.float64)
-    cols = zip(*parts) if parts else ([] for _ in dtypes)
-    cand = [gather(mesh, list(c) or [torch.empty(0, dtype=d, device=dev)])
-            for c, d in zip(cols, dtypes)]
+    local = [b.candidates(int(n)) for b, n in zip(bufs, tallies[:, 0])]
+    cand = [gather(mesh, [c[j] for c in local]) for j in range(4)]
     return kept, cand, counts, unrel
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    """The cyclic garbage collector paused while the dicts are built: their
+    p dicts and 2 n_sig entries hold no cycles, and the collections their
+    allocation would trigger walk the process's whole live heap."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def _significant(cand, p, m, alpha, FDR):
+    """The neighbor dicts of the BH-significant candidates, and n_sig.
+
+    ``cand`` is (X, Y, logp, stat) on the device in any order, or None.
+    Decisions are float64 on the device: the stable sort by log p and BH
+    in log space over ``m`` tests.  Tied log p-values get the same
+    adjusted value (the reverse cummin over their run), so the significant
+    prefix is one set whatever the candidates' order; the n_sig rows cross
+    to the host in one transfer and each dict inserts in ascending
+    adjusted p, ties by condensed pair index, as the host path's dicts
+    (HITON's candidate order depends on it)."""
+    rf = torch.profiler.record_function
+    la = math.log(alpha)
+    with rf("uv_psorted"), _gc_paused():
+        nbr = {i: PSortedNbrs() for i in range(p)}
+    if cand is None:
+        return nbr, 0
+    X, Y, lp, stat = cand
+    kept = lp.numel()
+    with rf("uv_sort"):
+        slog, order = torch.sort(lp, stable=True)
+    with rf("uv_bh"):
+        if FDR:
+            # BH's step-up: the significant pairs are the ranks up to the
+            # last whose term is below log alpha, and there each adjusted
+            # value, the smallest term from its rank on, is one of theirs
+            # (every later term is at least log alpha)
+            ranks = torch.arange(1, kept + 1, dtype=torch.float64,
+                                 device=lp.device)
+            terms = torch.where(slog < la,
+                                slog + math.log(m) - torch.log(ranks),
+                                math.inf)
+            n_sig = (kept if la > 0.0 else       # clamped to 0 < log alpha
+                     int(torch.where(terms < la, ranks, 0.0).max()))
+            ladj = torch.flip(torch.cummin(torch.flip(terms[:n_sig], (0,)),
+                                           0).values, (0,))
+            ladj = torch.clamp(ladj, max=0.0)
+        else:
+            # the candidates below log alpha, a prefix of the sorted ones
+            n_sig = int((slog < la).sum())
+            ladj = slog[:n_sig]
+    with rf("uv_transfer"):
+        order = order[:n_sig]
+        rows = torch.stack([X[order].to(torch.float64),
+                            Y[order].to(torch.float64), ladj,
+                            stat[order]]).cpu().numpy()
+    with rf("uv_fill"), _gc_paused():
+        Xs, Ys = rows[0].astype(np.int64), rows[1].astype(np.int64)
+        pvals, stats = np.exp(rows[2]), rows[3]
+        # BH plateaus give exact ties in the adjusted p; the host path's
+        # candidate order breaks them by condensed pair index (its dicts
+        # insert in condensed order, then stable-sort by p), so these dicts
+        # insert in that order too
+        tie = np.lexsort((condensed_pos(Xs, Ys, p), pvals))
+        _fill_dicts(nbr, Xs[tie], Ys[tie], stats[tie], pvals[tie])
+    return nbr, n_sig
+
+
+def _fill_dicts(nbr, Xs, Ys, stats, pvals):
+    """Insert each pair (X, Y, stat, p), in the given order, into both of
+    its variables' dicts, as a loop over the pairs would (``nbr[X][Y]``,
+    then ``nbr[Y][X]``, one (stat, p) tuple shared by both): the pairs'
+    two ends grouped by variable with a stable sort, which keeps each
+    variable's pairs in the given order, then one ``update`` a variable."""
+    n = len(Xs)
+    if n == 0:
+        return
+    ends = np.stack([Xs, Ys], axis=1).ravel()     # pair k at 2k and 2k + 1
+    other = np.stack([Ys, Xs], axis=1).ravel()
+    order = np.argsort(ends, kind="stable")
+    entries = list(zip(np.asarray(stats, dtype=np.float64).tolist(),
+                       np.asarray(pvals, dtype=np.float64).tolist()))
+    vals = [entries[k] for k in (order >> 1).tolist()]
+    keys = other[order].tolist()
+    owner = ends[order]
+    cuts = (np.flatnonzero(owner[1:] != owner[:-1]) + 1).tolist()
+    for v, a, b in zip(owner[[0] + cuts].tolist(), [0] + cuts,
+                       cuts + [2 * n]):
+        nbr[v].update(zip(keys[a:b], vals[a:b]))
 
 
 def _extract(kind, block, p, tile_sz, alpha, FDR, reliable, n_obs_min=0.0,
              max_df=0, info=None):
-    """Neighbor dicts of the BH-significant pairs, swept on the device.
+    """Neighbor dicts of the BH-significant pairs, swept on the device
+    through K8.
 
     Decisions are float64 on the device: log p-values, the candidate sort
     and BH.  The n_sig significant rows cross to the host in one transfer.
@@ -680,10 +813,9 @@ def _extract(kind, block, p, tile_sz, alpha, FDR, reliable, n_obs_min=0.0,
     kept, cand, counts, unrel = _sweep(kind, block, blocks, la, reliable,
                                        n_obs_min, max_df, edges=edges,
                                        calls=calls)
-    m = n_pairs - (int(unrel) if reliable else 0)
+    m = n_pairs - (unrel if reliable else 0)
     route = "one sweep"
     if kept > EXTRACT_BUDGET:
-        counts = counts.cpu().numpy()
         b_hat = _select_bin(counts, m, alpha, edges) if FDR else 0
         K = int(counts[b_hat])
         if K > EXTRACT_BUDGET:
@@ -700,38 +832,7 @@ def _extract(kind, block, p, tile_sz, alpha, FDR, reliable, n_obs_min=0.0,
                 f"the second univariate sweep found {kept} candidates where "
                 f"the first counted {K}; refusing to return a different set")
         route = "two sweeps"
-    n_sig = 0
-    nbr = {i: PSortedNbrs() for i in range(p)}
-    if kept:
-        X, Y, lp, stat = cand
-        slog, order = torch.sort(lp, stable=True)
-        if FDR:
-            ranks = torch.arange(1, kept + 1, dtype=torch.float64,
-                                 device=lp.device)
-            terms = torch.where(slog < la, slog + math.log(m) - torch.log(ranks),
-                                math.inf)
-            ladj = torch.flip(torch.cummin(torch.flip(terms, (0,)), 0).values,
-                              (0,))
-            ladj = torch.clamp(ladj, max=0.0)
-        else:
-            ladj = slog
-        # ladj is nondecreasing: the significant pairs are a prefix
-        n_sig = int((ladj < la).sum())
-        order = order[:n_sig]
-        rows = torch.stack([X[order].to(torch.float64),
-                            Y[order].to(torch.float64), ladj[:n_sig],
-                            stat[order]]).cpu().numpy()
-        Xs, Ys = rows[0].astype(np.int64), rows[1].astype(np.int64)
-        pvals, stats = np.exp(rows[2]), rows[3]
-        # BH plateaus give exact ties in the adjusted p; the host path's
-        # candidate order breaks them by condensed pair index (its dicts
-        # insert in condensed order, then stable-sort by p), so these dicts
-        # insert in that order too: HITON's candidate order depends on it
-        tie = np.lexsort((condensed_pos(Xs, Ys, p), pvals))
-        for x, y, st, pv in zip(Xs[tie], Ys[tie], stats[tie], pvals[tie]):
-            entry = (float(st), float(pv))
-            nbr[int(x)][int(y)] = entry
-            nbr[int(y)][int(x)] = entry
+    nbr, n_sig = _significant(cand, p, m, alpha, FDR)
     if info is not None:
         info.update(route=route, K=kept, n_sig=n_sig)
         if calls is not None:

@@ -6,7 +6,8 @@ upload.
 
 - Discrete tests (mi, mi_nz): the int8 table (int16 when a value exceeds
   127) with its per-variable ``levels``, ``max_vals`` and level marginals
-  (:func:`from_numpy_state`).
+  (:func:`from_numpy_state`; :func:`from_device_table` where the table was
+  cast, checked and uploaded already, ``learning.lgl._device_levels``).
 - Continuous tests (fz_nz): one contiguous float64 (n, p) tensor
   (:func:`from_numpy_continuous`).
 
@@ -92,6 +93,28 @@ def from_numpy_state(data, levels: Optional[np.ndarray] = None,
         levels_np=levels_np,
         max_vals_np=max_vals_np,
         L=L,
+    )
+
+
+def from_device_table(data: torch.Tensor, marg: torch.Tensor,
+                      levels_np: np.ndarray,
+                      max_vals_np: np.ndarray) -> DiscreteState:
+    """The state of an (n, p) int8 table already on its device, with its
+    (L, p) int32 level marginals there (``ops.kernels.level_marginals``)
+    and its levels and max_vals on the host (``learning.lgl.
+    _device_levels``): nothing is cast, checked or uploaded again."""
+    dev = data.device
+    levels_np = np.asarray(levels_np, dtype=np.int32)
+    max_vals_np = np.asarray(max_vals_np, dtype=np.int32)
+    return DiscreteState(
+        data=data,
+        dataT=data.T.contiguous(),
+        levels=torch.from_numpy(levels_np).to(dev),
+        max_vals=torch.from_numpy(max_vals_np).to(dev),
+        marg=marg,
+        levels_np=levels_np,
+        max_vals_np=max_vals_np,
+        L=marg.shape[0],
     )
 
 

@@ -409,3 +409,276 @@ def test_default_route_never_condenses(case, monkeypatch):
     assert sum(map(len, nbrs.values())) > 0
     with pytest.raises(AssertionError, match="condensed on the host"):
         U.pw_univar_neighbors(data, device="cpu", return_result=True, **kw)
+
+
+# ---------------------------------------------------------------------------
+# K8's plain version against the extraction before it, and the tail
+# ---------------------------------------------------------------------------
+
+def _old_block_scores(kind, outs, s, y_start, reliable, n_obs_min=0.0,
+                      max_df=0):
+    """The block scores of the extraction before K8, as they were."""
+    if kind == "mi":
+        stat, df, n_obs, suff = outs
+        logp = sf.mi_logpval_smalldf(stat, df, n_obs, max_df)
+    else:
+        r, N = outs
+        suff = N >= n_obs_min
+        stat = torch.where(suff, r, 0.0)
+        logp = sf.fz_logpval(stat, N, 0)
+    t, q = logp.shape
+    valid = (torch.arange(s, s + t)[:, None]
+             < torch.arange(y_start, y_start + q)[None, :])
+    unrel = valid & (~suff | torch.isnan(logp))
+    logp = torch.where(unrel, math.inf if reliable else 0.0, logp)
+    logp = torch.where(valid, logp, math.inf)
+    return logp, stat, unrel.sum()
+
+
+def _old_sweep(kind, blocks, thresh, reliable, n_obs_min, max_df, edges):
+    """The sweep before K8 over (outs, s, y0) blocks: its candidates in
+    order, the counts below each edge and the unreliable pairs."""
+    parts, counts, unrel = [], 0, 0
+    e = torch.as_tensor(edges, dtype=torch.float64)
+    for outs, s, y0 in blocks:
+        logp, stat, n_unrel = _old_block_scores(kind, outs, s, y0, reliable,
+                                                n_obs_min, max_df)
+        ylen = logp.shape[1]
+        idx = torch.nonzero(logp.view(-1) < thresh).squeeze(1)
+        lp = logp.view(-1)[idx]
+        counts = counts + (lp[:, None] < e[None, :]).sum(dim=0)
+        unrel = unrel + n_unrel
+        parts.append((((idx // ylen) + s).to(torch.int32),
+                      ((idx % ylen) + y0).to(torch.int32), lp,
+                      stat.reshape(-1)[idx]))
+    return [torch.cat(c) for c in zip(*parts)], counts, unrel
+
+
+def _block_outs(case, nan_rows=False, seed=3):
+    """(kind, n_obs_min, max_df, [(outs, s, y0)], p) of three blocks of a
+    case's table from the plain block functions on the CPU, one on the
+    diagonal and two off it."""
+    from flashweave_tpu_torch.ops import kernels as K
+    from flashweave_tpu_torch.state import (from_numpy_continuous,
+                                            from_numpy_state)
+
+    spans = [(0, 48, 0, 384), (100, 32, 40, 200), (200, 24, 150, 234)]
+    if case == "mi_L12":
+        data = _grouped(900, 384, 12)
+        test_name = "mi"
+    else:
+        test_name, data = _case(case)
+    p = data.shape[1]
+    rng = np.random.default_rng(seed)
+    blocks = []
+    if test_name.startswith("mi"):
+        st = from_numpy_state(data, None, None, "cpu")
+        nz = 0 if test_name == "mi" else (2 if case == "mi_nz_nz2" else 1)
+        max_df = (min(st.L, int(st.levels_np.max())) - 1) ** 2
+        for s, t, y0, q in spans:
+            stat, df, n_obs, suff = K.mi_univar_stats_ref(
+                st.dataT, st.marg, st.levels, st.max_vals, s, t, st.L, y0, q,
+                nz, 5.0, 20.0)
+            if nan_rows:
+                stat = stat.clone()
+                stat[::5] = math.nan
+                suff = suff & torch.from_numpy(rng.random((t, q)) > 0.1)
+            blocks.append(((stat, df, n_obs, suff), s, y0))
+        return "mi", 0.0, max_df, blocks, p
+    table = from_numpy_continuous(data, "cpu")
+    if test_name == "fz_nz":
+        for s, t, y0, q in spans:
+            r, N = K.fz_nz_stats_ref(table, s, t, y0, q)
+            if nan_rows:
+                r = r.clone()
+                r[::5] = math.nan
+            blocks.append(((r, N), s, y0))
+        return "fz_nz", 20.0, 0, blocks, p
+    xc, ssd = U._fz_center(table)
+    n = torch.tensor(float(data.shape[0]), dtype=torch.float64)
+    for s, t, y0, q in spans:
+        r = U.fz_block(xc, ssd, s, t, y0, q)
+        if nan_rows:
+            r = r.clone()
+            r[::5] = math.nan
+        blocks.append(((r, n), s, y0))
+    return "fz", 20.0, 0, blocks, p
+
+
+def _fronted(kind, outs, n_obs_min):
+    if kind == "mi":
+        return "mi", outs
+    return "given", U._given_scores(outs, n_obs_min)
+
+
+REF_CASES = [(c, nan) for c in ("mi_L3", "mi_nz_nz1", "mi_nz_nz2", "mi_L12",
+                                "fz_nz", "fz") for nan in (False, True)]
+
+
+@pytest.mark.parametrize("reliable", [True, False])
+@pytest.mark.parametrize("case,nan_rows", REF_CASES,
+                         ids=[f"{c}-nan{n}" for c, n in REF_CASES])
+def test_univar_extract_ref_equals_the_extraction_before_k8(case, nan_rows,
+                                                            reliable):
+    """K8's plain version over three blocks of a sweep, with and without
+    NaN stats (and pairs without power): the cursor, the unreliable pairs,
+    the counts below each edge and the candidates (X, Y, log p, stat, in
+    order, bit for bit) of the sweep before K8; with the budget cut inside
+    the second block, the same first slots and the cursor counting on."""
+    from flashweave_tpu_torch.ops import kernels as K
+
+    kind, n_obs_min, max_df, blocks, p = _block_outs(case, nan_rows)
+    alpha = 0.05
+    edges = U._extract_edges(alpha, p * (p - 1) // 2)
+    la = math.log(alpha)
+    want, counts, unrel = _old_sweep(kind, blocks, la, reliable, n_obs_min,
+                                     max_df, edges)
+    kept = len(want[0])
+    assert kept > 100
+    for cap in (sum(o[0].numel() for o, _, _ in blocks), kept - 37):
+        buf = K.ExtractBuffers(cap, "cpu", edges, max_df)
+        for outs, s, y0 in blocks:
+            front, fo = _fronted(kind, outs, n_obs_min)
+            K.univar_extract(buf, front, fo, s, y0, la, reliable, max_df)
+        assert buf.tally[0] == kept and buf.kept == kept
+        assert buf.tally[1] == unrel
+        assert torch.equal(buf.tally[2:], counts)
+        got = buf.candidates(min(cap, kept))
+        for g, w in zip(got, want):
+            w = w[:min(cap, kept)]
+            assert g.dtype == w.dtype
+            if g.dtype == torch.float64:
+                g, w = g.view(torch.int64), w.view(torch.int64)
+            assert torch.equal(g, w)
+    if nan_rows:
+        assert unrel > 0
+
+
+def test_univar_extract_second_sweep_form_counts_nothing():
+    """Without edges the tally counts the candidates and the unreliable
+    pairs only; the candidates are those below the inner edge."""
+    from flashweave_tpu_torch.ops import kernels as K
+
+    kind, n_obs_min, max_df, blocks, p = _block_outs("mi_nz_nz2")
+    edges = U._extract_edges(0.05, p * (p - 1) // 2)
+    want, counts, unrel = _old_sweep(kind, blocks, float(edges[5]), True,
+                                     n_obs_min, max_df, edges)
+    buf = K.ExtractBuffers(10_000, "cpu", None, max_df)
+    for outs, s, y0 in blocks:
+        K.univar_extract(buf, "mi", outs, s, y0, float(edges[5]), True,
+                         max_df)
+    assert buf.tally[0] == len(want[0]) > 0
+    assert buf.tally[1] == unrel and not buf.tally[2:].any()
+    for g, w in zip(buf.candidates(len(want[0])), want):
+        assert torch.equal(g, w)
+
+
+def test_extract_buffers_check_their_edges():
+    from flashweave_tpu_torch.ops import kernels as K
+
+    assert K.K8_EDGES == U.N_EXTRACT_BINS
+    edges = U._extract_edges(0.01, 1000)
+    with pytest.raises(ValueError, match="strictly decreasing"):
+        K.ExtractBuffers(8, "cpu", edges[::-1])
+    with pytest.raises(ValueError, match="strictly decreasing"):
+        K.ExtractBuffers(8, "cpu", edges[:10])
+    flat = edges.copy()
+    flat[3] = flat[4]
+    with pytest.raises(ValueError, match="strictly decreasing"):
+        K.ExtractBuffers(8, "cpu", flat)
+
+
+def _old_tail(cand, p, m, alpha, FDR):
+    """The extraction's tail before this change: the stable sort, BH's
+    reverse cummin over every candidate, the one transfer and the loop
+    that fills the dicts pair by pair."""
+    la = math.log(alpha)
+    nbr = {i: PSortedNbrs() for i in range(p)}
+    X, Y, lp, stat = cand
+    kept = lp.numel()
+    slog, order = torch.sort(lp, stable=True)
+    if FDR:
+        ranks = torch.arange(1, kept + 1, dtype=torch.float64)
+        terms = torch.where(slog < la, slog + math.log(m) - torch.log(ranks),
+                            math.inf)
+        ladj = torch.flip(torch.cummin(torch.flip(terms, (0,)), 0).values,
+                          (0,))
+        ladj = torch.clamp(ladj, max=0.0)
+    else:
+        ladj = slog
+    n_sig = int((ladj < la).sum())
+    order = order[:n_sig]
+    rows = torch.stack([X[order].to(torch.float64),
+                        Y[order].to(torch.float64), ladj[:n_sig],
+                        stat[order]]).numpy()
+    Xs, Ys = rows[0].astype(np.int64), rows[1].astype(np.int64)
+    pvals, stats = np.exp(rows[2]), rows[3]
+    tie = np.lexsort((U.condensed_pos(Xs, Ys, p), pvals))
+    for x, y, st, pv in zip(Xs[tie], Ys[tie], stats[tie], pvals[tie]):
+        entry = (float(st), float(pv))
+        nbr[int(x)][int(y)] = entry
+        nbr[int(y)][int(x)] = entry
+    return nbr, n_sig
+
+
+def _tied_candidates(p=300, K=20_000, seed=9):
+    """K distinct pairs of p variables whose log p-values take 60 values
+    (BH plateaus and exact ties), in condensed order."""
+    rng = np.random.default_rng(seed)
+    pos = np.sort(rng.choice(p * (p - 1) // 2, K, replace=False))
+    X, Y = U.condensed_to_pair(pos, p)
+    levels = np.log(0.05) - np.concatenate([rng.exponential(1.0, 40),
+                                            rng.exponential(20.0, 20)])
+    lp = rng.choice(levels, K)
+    stat = rng.standard_normal(K)
+    return [torch.from_numpy(X.astype(np.int32)),
+            torch.from_numpy(Y.astype(np.int32)), torch.from_numpy(lp),
+            torch.from_numpy(stat)], p
+
+
+@pytest.mark.parametrize("FDR", [True, False])
+@pytest.mark.parametrize("m_scale", [3, 40])
+def test_significant_is_order_free_and_equals_the_old_tail(FDR, m_scale):
+    """The factored tail (``_significant``) on the candidates in condensed
+    order and in two random permutations gives the old tail's dicts, item
+    for item in insertion order, and its n_sig: tied log p-values get one
+    adjusted p, so the significant prefix is one set, and the dicts insert
+    by (adjusted p, condensed index) whatever the candidates' order."""
+    cand, p = _tied_candidates()
+    m = m_scale * len(cand[2])
+    want, want_sig = _old_tail(cand, p, m, 0.05, FDR)
+    assert 0 < want_sig <= len(cand[2])
+    assert want_sig < len(cand[2]) or not FDR
+    rng = np.random.default_rng(m_scale)
+    for perm in (np.arange(len(cand[2])), rng.permutation(len(cand[2])),
+                 rng.permutation(len(cand[2]))):
+        got, n_sig = U._significant([c[perm] for c in cand], p, m, 0.05, FDR)
+        assert n_sig == want_sig
+        assert list(got) == list(want)
+        for v in want:
+            assert isinstance(got[v], PSortedNbrs)
+            assert list(got[v].items()) == list(want[v].items()), v
+
+
+def test_fill_dicts_equals_the_pair_loop():
+    """The grouped fill inserts what the loop over the pairs inserts, in
+    the same order in every dict, one tuple shared by both ends."""
+    rng = np.random.default_rng(2)
+    p, n = 500, 4000
+    pos = rng.choice(p * (p - 1) // 2, n, replace=False)   # any order
+    X, Y = U.condensed_to_pair(pos, p)
+    stats, pvals = rng.standard_normal(n), rng.random(n)
+    want = {i: PSortedNbrs() for i in range(p)}
+    for x, y, st, pv in zip(X, Y, stats, pvals):
+        entry = (float(st), float(pv))
+        want[int(x)][int(y)] = entry
+        want[int(y)][int(x)] = entry
+    got = {i: PSortedNbrs() for i in range(p)}
+    U._fill_dicts(got, X, Y, stats, pvals)
+    for v in range(p):
+        assert list(got[v].items()) == list(want[v].items())
+        for w, e in got[v].items():
+            assert e is got[w][v]
+    empty = {0: PSortedNbrs()}
+    U._fill_dicts(empty, X[:0], Y[:0], stats[:0], pvals[:0])
+    assert empty == {0: {}}

@@ -130,7 +130,8 @@ def test_cpu_wrapper_runs_plain_version_without_counting():
                                  "mi_univar_stats_planes": 0,
                                  "mi_cond_stats": 0,
                                  "mi_window_digest": 0,
-                                 "mi_turbo_digest": 0}
+                                 "mi_turbo_digest": 0,
+                                 "univar_extract": 0}
 
 
 def test_wrapper_rejects_other_devices():
@@ -425,7 +426,8 @@ def test_fz_nz_cpu_wrapper_runs_plain_version_without_counting():
                                  "mi_univar_stats_planes": 0,
                                  "mi_cond_stats": 0,
                                  "mi_window_digest": 0,
-                                 "mi_turbo_digest": 0}
+                                 "mi_turbo_digest": 0,
+                                 "univar_extract": 0}
 
 
 def test_fz_nz_wrapper_rejects_other_devices():

@@ -231,7 +231,7 @@ def test_cpu_wrappers_run_plain_versions_without_counting():
                                       "pair_ctab_planes",
                                       "mi_univar_stats_planes",
                                       "mi_cond_stats", "mi_window_digest",
-                                      "mi_turbo_digest"}
+                                      "mi_turbo_digest", "univar_extract"}
     assert not any(K.launch_counts().values())
 
 

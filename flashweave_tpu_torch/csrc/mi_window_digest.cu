@@ -102,12 +102,6 @@ struct Args {
   double* out;                        // (3, NC)
 };
 
-// the chain class of a test whose chain runs to df (0: none): df / 2,
-// evens first, the last classes of each parity shared by the longest
-__device__ __forceinline__ int chain_class(int df) {
-  return (df & 1) ? HALF + min(df >> 1, HALF - 2) : min(df >> 1, HALF - 1);
-}
-
 __device__ __forceinline__ long long seg_start(const long long* ends,
                                                int c) {
   return c > 0 ? ends[c - 1] : 0;
@@ -239,7 +233,7 @@ mi_window_digest_kernel(Args a) {
       const int dv = a.suff[t] && d >= 1 && d <= a.max_df ? (int)d : 0;
       xs[p] = __dmul_rn(fabs(a.stat[t]), a.nobs[t]);
       dfs[p] = dv;
-      cls = chain_class(dv);
+      cls = fw_digest::chain_class<HALF>(dv);
     }
     const unsigned peers = __match_any_sync(fw_digest::FULL, cls);
     const int leader = __ffs(peers) - 1;

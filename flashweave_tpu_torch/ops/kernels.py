@@ -125,13 +125,17 @@ K7_ZDESC_INTS = 8
 # an edge
 K8_EDGES = 48
 K8_TALLY = 2 + K8_EDGES
+# K8's tile: the consecutive pairs of a row a block takes at once
+# (csrc/mi_univar_extract.cu's TILE)
+K8_TILE = 2048
 
 
 @dataclass
 class BuildInfo:
     path: Path
     seconds: float      # 0.0 when an existing library was reused
-    log: str            # nvcc's output (ptxas register / spill report)
+    log: str            # nvcc's output (ptxas register / spill report),
+                        # kept beside the library for a later reuse
 
 
 _library = None     # process-wide (CDLL, BuildInfo), set by the first load
@@ -152,15 +156,18 @@ def build_library() -> BuildInfo:
     One ``nvcc -c`` per source, all started together, then one link.  The
     hash covers the sources and the flags, so an edited source builds a new
     library.  Concurrent builds each write private temporary files and
-    rename the library into place."""
+    rename the library into place.  nvcc's report is kept beside it as
+    ``.log``, so a reuse returns it too."""
     sources = sorted(SRC_DIR.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(SRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_DIR / f"libfw_kernels_{h.hexdigest()[:16]}.so"
+    report = out.with_suffix(".log")
     if out.exists():
-        return BuildInfo(out, 0.0, "")
+        return BuildInfo(out, 0.0,
+                         report.read_text() if report.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
@@ -186,6 +193,9 @@ def build_library() -> BuildInfo:
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
+    tmp_report = report.with_name(f"{report.name}.{os.getpid()}.tmp")
+    tmp_report.write_text(log)
+    os.replace(tmp_report, report)
     os.replace(tmp, out)
     return BuildInfo(out, time.perf_counter() - t0, log)
 
@@ -237,8 +247,10 @@ def load_library():
         lib.fw_mi_turbo_digest.restype = i32
         lib.fw_univar_extract.argtypes = [
             i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f64, i32,
-            i32, ptr, ptr, i64, ptr, ptr, ptr, ptr, ptr, i32, ptr]
+            i32, ptr, ptr, i64, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr]
         lib.fw_univar_extract.restype = i32
+        lib.fw_univar_extract_blocks_per_sm.argtypes = [ptr]
+        lib.fw_univar_extract_blocks_per_sm.restype = i32
         lib.fw_cuda_error_string.argtypes = [i32]
         lib.fw_cuda_error_string.restype = ctypes.c_char_p
         _library = (lib, info)
@@ -1142,8 +1154,9 @@ class ExtractBuffers:
     """What one sweep of the univariate extraction accumulates on a device,
     block by block (:func:`univar_extract`): ``tally`` (K8_TALLY,) int64,
     [candidates so far, unreliable pairs, the candidates below each edge],
-    and each candidate's (X int32, Y int32, log p float64, stat float64) in
-    ``cap`` slots (the candidates past ``cap`` are counted, not kept).
+    K8's two tile counters ``sched``, and each candidate's (X int32, Y
+    int32, log p float64, stat float64) in ``cap`` slots (the candidates
+    past ``cap`` are counted, not kept).
     ``edges`` (numpy, K8_EDGES strictly decreasing log p-values, or None:
     no edge counts) and the lgamma offsets of ``max_df`` go up here, once a
     sweep, so no block of the sweep copies from the host."""
@@ -1156,6 +1169,9 @@ class ExtractBuffers:
         self.logp = torch.empty(self.cap, dtype=torch.float64, device=dev)
         self.stat = torch.empty(self.cap, dtype=torch.float64, device=dev)
         self.tally = torch.zeros(K8_TALLY, dtype=torch.int64, device=dev)
+        # K8's tile counters (tiles asked for, blocks done): 0 between
+        # launches
+        self.sched = torch.zeros(2, dtype=torch.int32, device=dev)
         self.edges = None
         if edges is not None:
             e = np.asarray(edges, dtype=np.float64)
@@ -1236,6 +1252,37 @@ def _check_extract_args(buf, front, outs, max_df):
         raise ValueError("K8 takes fewer than 2^31 rows and columns")
 
 
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def k8_blocks_per_sm(index: int) -> int:
+    """The blocks of K8 that one SM of CUDA device ``index`` holds at
+    once (the occupancy of its registers and shared memory)."""
+    lib, _ = load_library()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = lib.fw_univar_extract_blocks_per_sm(ctypes.byref(n))
+    _check_cuda_error(lib, err, "K8's occupancy")
+    if n.value < 1:
+        raise RuntimeError("K8 fits no SM of this card")
+    return n.value
+
+
+_K8_GRID: dict = {}
+
+
+def k8_grid(device) -> int:
+    """K8's grid on a CUDA device: its SMs times the blocks of K8 an SM
+    holds at once, asked once a device and kept."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _K8_GRID:
+        _K8_GRID[index] = _sm_count(index) * k8_blocks_per_sm(index)
+    return _K8_GRID[index]
+
+
 def univar_extract(buf, front, outs, s, y0, thresh, reliable, max_df=0):
     """One (t, q) block of a sweep of the univariate extraction,
     accumulated into ``buf`` (:class:`ExtractBuffers`): X = s + row,
@@ -1269,7 +1316,7 @@ def univar_extract(buf, front, outs, s, y0, thresh, reliable, max_df=0):
         logp, stat, suff = outs
         df = nobs = None
     lib, _ = load_library()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = k8_grid(dev)
     ptr = (lambda x: None if x is None else x.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1278,8 +1325,8 @@ def univar_extract(buf, front, outs, s, y0, thresh, reliable, max_df=0):
             ptr(nobs), suff.data_ptr(), int(suff.dim() == 0), t, q, int(s),
             int(y0), float(thresh), int(bool(reliable)), int(max_df),
             buf.lg.data_ptr(), ptr(buf.edges), buf.cap, buf.tally.data_ptr(),
-            buf.X.data_ptr(), buf.Y.data_ptr(), buf.logp.data_ptr(),
-            buf.stat.data_ptr(), sms, stream)
+            buf.sched.data_ptr(), buf.X.data_ptr(), buf.Y.data_ptr(),
+            buf.logp.data_ptr(), buf.stat.data_ptr(), grid, stream)
     _check_cuda_error(lib, err, "univar_extract launch")
     univar_extract.launches += 1
     return None

@@ -268,6 +268,55 @@ def test_chip_smoke_k6_lane_use():
     assert got["by_segment"] == pytest.approx(ops.sum() / (2 * ops.max()))
 
 
+def test_chip_smoke_k8_lane_use():
+    """chip_smoke.py's lane use of K8's layouts: the branches of a chain sum
+    to its operations; one df everywhere keeps every lane busy both ways;
+    two chain classes alternating pair by pair cost a warp of consecutive
+    pairs both branches, and K8's sorted tiles one each (up to the tile's
+    one mixed warp); a tile of one class runs in tile order, so its pairs
+    without power leave lanes idle; pairs at X >= Y run nothing."""
+    smoke = _smoke_module()
+    smoke.LOGP_OPS.update(exp=31, log=45, log1p=46, erfc=114, sqrt=14)
+    d = np.arange(131)
+    np.testing.assert_array_equal(smoke.chain_branches(d).sum(axis=0),
+                                  smoke.logp_test_ops(d, np.ones(131, bool),
+                                                      200))
+    t, q = 3, 8192
+    df = torch.full((t, q), 3, dtype=torch.int32)
+    suff = torch.ones((t, q), dtype=torch.bool)
+    outs = (torch.zeros(t, q, dtype=torch.float64), df, df, suff)
+    got = smoke.k8_lane_use(outs, 0, t, 4, 4096)
+    assert got == {"in_order": 1.0, "built": 1.0, "mixed_tiles": 0.0}
+    df[:, 1::2] = 4
+    ops3, ops4 = smoke.logp_test_ops(np.array([3, 4]), [True, True], 4)
+    branches = smoke.chain_branches(np.array([3, 4])).max(axis=1).sum()
+    got = smoke.k8_lane_use(outs, 0, t, 4, 4096)
+    assert got["in_order"] == pytest.approx((ops3 + ops4) / (2 * branches))
+    assert got["built"] == pytest.approx(1.0, abs=2e-3)
+    assert got["mixed_tiles"] == 1.0
+    # the second tile of each row of one class, every other pair without
+    # power: in tile order, half of its lanes idle
+    suff[:, 4096::2] = False
+    got = smoke.k8_lane_use(outs, 0, t, 4, 4096)
+    useful = 2048 * ops3 + 4096 * ops4
+    assert got["built"] == pytest.approx(
+        useful / (32 * (64 * ops3 + 64 * ops4 + 128 * ops4)))
+    assert got["mixed_tiles"] == 0.5
+    # at X >= Y (the block on the diagonal) and without power: no chain;
+    # every tile of one class, so in tile order both ways
+    suff[:, ::2] = False
+    got = smoke.k8_lane_use(outs, 0, 0, 4, 4096)
+    assert got["built"] == got["in_order"] == pytest.approx(0.5, abs=2e-3)
+    assert got["mixed_tiles"] == 0.0
+    hist = smoke.k8_df_hist(outs, 0, 0)
+    assert hist == {4: int((np.arange(q)[1::2] > np.arange(t)[:, None]).sum()),
+                    "no power": int((np.arange(q)[::2]
+                                     > np.arange(t)[:, None]).sum())}
+    suff[:] = False
+    assert smoke.k8_lane_use(outs, 0, 0, 4, 4096) == {
+        "in_order": None, "built": None, "mixed_tiles": None}
+
+
 @pytest.mark.parametrize("nz", [0, 2])
 def test_chip_smoke_turbo_occupied_cells(nz):
     """The G-tests' work in K7's bound: the occupied cells of every
@@ -439,7 +488,8 @@ def test_fz_nz_wrapper_rejects_other_devices():
 def test_build_runs_one_nvcc_per_source_then_links(monkeypatch, tmp_path):
     """build_library with a stand-in nvcc that writes its -o file and a
     ptxas-style line: one compile per csrc/*.cu, one link, objects removed,
-    the library named by the source hash and reused on the next call."""
+    the library named by the source hash with nvcc's report beside it, and
+    both reused on the next call."""
     fake = tmp_path / "nvcc"
     calls = tmp_path / "calls.txt"
     fake.write_text(
@@ -460,7 +510,10 @@ def test_build_runs_one_nvcc_per_source_then_links(monkeypatch, tmp_path):
     assert sum(ln.startswith("-shared") for ln in lines) == 1
     assert info.path.exists() and info.path.name.startswith("libfw_kernels_")
     assert info.log.count("registers") == n_src
-    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == [info.path.name]
+    report = info.path.with_suffix(".log")
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == [
+        report.name, info.path.name]
     again = K.build_library()
     assert again.path == info.path and again.seconds == 0.0
+    assert again.log == info.log == report.read_text()
     assert len(calls.read_text().splitlines()) == len(lines)

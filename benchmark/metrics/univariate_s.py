@@ -1,0 +1,6 @@
+"""Per layer: the StageTimer stage ``univariate``'s seconds, mean a network
+of the traced window."""
+
+
+def read(run):
+    return run.stage_mean("univariate")

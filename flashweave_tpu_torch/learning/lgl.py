@@ -50,6 +50,7 @@ from ..utils.misc import (
     make_weights,
     maxweight,
 )
+from ..utils.timing import StageTimer, gc_spans, profiler_trace, span
 from .hiton import HitonConfig
 from .scheduler import RoundScheduler
 
@@ -93,28 +94,35 @@ def _device_levels(data, device="cuda"):
     if data.ndim != 2:
         return None
     if data.dtype not in DEVICE_LEVELS_DTYPES:
-        d8 = data.astype(np.int8)
-        if not np.array_equal(d8, data):
+        with span("prep_convert"):
+            d8 = data.astype(np.int8)
+            same = np.array_equal(d8, data)
+        if not same:
             return None
         data = d8
     dev = resolve_device(device)
-    x = torch.from_numpy(np.ascontiguousarray(data)).to(dev)
-    d8 = x.to(torch.int8)
-    if x.numel() == 0:
-        verdict = (0, 0)
-    else:
-        bad = (d8.to(x.dtype) != x).any() | (d8 < 0).any()
-        verdict = tuple(torch.stack([bad.long(), d8.max().long()]).tolist())
-    del x
+    with span("prep_upload"):
+        x = torch.from_numpy(np.ascontiguousarray(data)).to(dev)
+    with span("prep_check"):
+        d8 = x.to(torch.int8)
+        if x.numel() == 0:
+            verdict = (0, 0)
+        else:
+            bad = (d8.to(x.dtype) != x).any() | (d8 < 0).any()
+            verdict = tuple(
+                torch.stack([bad.long(), d8.max().long()]).tolist())
+        del x
     if verdict[0] or verdict[1] > DEVICE_LEVELS_MAX:
         return None
-    marg = level_marginals(d8, verdict[1] + 1)
-    present = marg > 0
-    top = torch.arange(marg.shape[0], dtype=torch.int32, device=dev)
-    levels, max_vals = torch.stack([
-        present.sum(dim=0, dtype=torch.int32),
-        torch.where(present, top[:, None], 0).amax(dim=0)]).cpu().numpy()
-    return from_device_table(d8, marg, levels, max_vals), levels, max_vals
+    with span("prep_levels"):
+        marg = level_marginals(d8, verdict[1] + 1)
+        present = marg > 0
+        top = torch.arange(marg.shape[0], dtype=torch.int32, device=dev)
+        levels, max_vals = torch.stack([
+            present.sum(dim=0, dtype=torch.int32),
+            torch.where(present, top[:, None], 0).amax(dim=0)]).cpu().numpy()
+        state = from_device_table(d8, marg, levels, max_vals)
+    return state, levels, max_vals
 
 
 def prepare_lgl(data, test_name, time_limit, parallel, max_k, n_obs_min, hps,
@@ -243,11 +251,9 @@ def LGL(
     if mesh is not None:
         dev = mesh.primary
 
-    from ..utils.timing import StageTimer, profiler_trace
-
     own_timer = stage_timer is None
     timer = StageTimer(dev) if own_timer else stage_timer
-    with profiler_trace(profile_dir):
+    with profiler_trace(profile_dir), gc_spans(), span("lgl"):
         result = _lgl_timed(
             data, test_name, max_k, alpha, hps, n_obs_min, max_tests,
             convergence_threshold, FDR, parallel, fast_elim, no_red_tests,
@@ -303,8 +309,9 @@ def _lgl_timed(
                     "computations may be slow."
                 )
     # fewest univariate neighbors first (reference: src/learning.jl:97-98)
-    target_vars = sorted(all_univar_nbrs.keys(),
-                         key=lambda x: len(all_univar_nbrs[x]))
+    with span("lgl_order"):
+        target_vars = sorted(all_univar_nbrs.keys(),
+                             key=lambda x: len(all_univar_nbrs[x]))
 
     rej_dict: Dict[int, dict] = {}
     unfinished: Dict[int, HitonState] = {}
@@ -369,6 +376,12 @@ def _lgl_timed(
                 weights_dict, "OR", edge_merge_fun=edge_merge_fun,
                 max_var=p, header=header,
             )
+    # the univariate dicts, the search's states and the device state go
+    # here, under a span of their own, not at the return
+    with span("lgl_release"):
+        del all_univar_nbrs, nbr_dict, target_vars, state
+        if max_k != 0:
+            del engine, scheduler, nbr_states
     if verbose:
         print("Complete")
     return LGLResult(graph, rej_dict, unfinished)

@@ -99,6 +99,7 @@ from .contingency import cond_ctab_batch
 from .univariate import _fz_center, cor_matrix
 from ..parallel.mesh import gather, pad_to_multiple, put_replicated
 from ..types import TestResult
+from ..utils.timing import span
 
 # running count of conditional CI tests dispatched (bench/diagnostics)
 N_TESTS_DISPATCHED = 0
@@ -752,7 +753,7 @@ class CondTestEngine:
         global N_TESTS_DISPATCHED
         B = len(X)
         N_TESTS_DISPATCHED += B
-        with torch.profiler.record_function("mi_digest"):
+        with span("mi_digest"):
             if self.mesh is None:
                 parts = self._mi_parts(X, Y, Zs, kvec)
                 stat, df, n_obs, suff = (t[0] if len(t) == 1 else torch.cat(t)
@@ -795,7 +796,7 @@ class CondTestEngine:
         global N_TESTS_DISPATCHED
         W = len(Ts)
         N_TESTS_DISPATCHED += W * tpl["B"]
-        with torch.profiler.record_function("turbo_digest"):
+        with span("turbo_digest"):
             parts = [self._turbo_windows(m, *arrs, alpha, tpl, i)
                      for i, arrs in self._shards(
                          [Ts, np.asarray(cands).reshape(W, m)], W)]
@@ -942,7 +943,7 @@ class CondTestEngine:
         ``profile_slice.py`` reads."""
         global N_TESTS_DISPATCHED
         N_TESTS_DISPATCHED += len(KV)
-        with torch.profiler.record_function("cont_digest"):
+        with span("cont_digest"):
             return self._cont_chunks(var_lists, POS, KV, counts, alpha)
 
     def _cont_chunks(self, var_lists, POS, KV, counts, alpha):

@@ -1200,13 +1200,9 @@ def univar_extract_ref(buf, front, outs, s, y0, thresh, reliable,
     :func:`univar_extract`."""
     from .univariate import _pair_scores
 
-    rf = torch.profiler.record_function
-    with rf("uv_scores"):
-        logp, stat, n_unrel = _pair_scores(front, outs, s, y0, reliable,
-                                           max_df)
-    with rf("uv_nonzero"):
-        idx = torch.nonzero(logp.view(-1) < thresh).squeeze(1)
-        lp = logp.view(-1)[idx]
+    logp, stat, n_unrel = _pair_scores(front, outs, s, y0, reliable, max_df)
+    idx = torch.nonzero(logp.view(-1) < thresh).squeeze(1)
+    lp = logp.view(-1)[idx]
     q = logp.shape[1]
     at, n = buf.kept, idx.numel()
     keep = max(0, min(n, buf.cap - at))
@@ -1220,8 +1216,7 @@ def univar_extract_ref(buf, front, outs, s, y0, thresh, reliable,
     buf.tally[0] += n
     buf.tally[1] += n_unrel
     if buf.edges is not None:
-        with rf("uv_counts"):
-            buf.tally[2:] += (lp[:, None] < buf.edges[None, :]).sum(dim=0)
+        buf.tally[2:] += (lp[:, None] < buf.edges[None, :]).sum(dim=0)
 
 
 def _check_extract_args(buf, front, outs, max_df):

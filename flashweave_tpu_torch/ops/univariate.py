@@ -63,6 +63,7 @@ from .kernels import (K1_LEVELS, PLANES_LEVELS, ExtractBuffers, fz_nz_stats,
 from ..parallel.mesh import gather, psum, put_replicated
 from ..types import PSortedNbrs
 from ..utils.misc import is_zero_adjusted, isdiscrete
+from ..utils.timing import span
 
 
 def mi_block_stats(ctab: torch.Tensor, levels_x, levels_y, maxv_x, maxv_y,
@@ -656,21 +657,20 @@ def _sweep(kind, block, blocks, thresh, reliable, n_obs_min, max_df,
     bufs = [ExtractBuffers(min(EXTRACT_BUDGET, n), dev, edges,
                            max_df if front == "mi" else 0)
             for n, dev in zip(slots, devices)]
-    rf = torch.profiler.record_function
     with _sync_debug(devices):
         for fn, i, s, t, y0, ylen in units:
-            with rf("uv_block"):
+            with span("uv_block"):
                 outs = fn(s, t, y0, ylen)
             if front == "given":
-                with rf("uv_given"):
+                with span("uv_given"):
                     outs = _given_scores(outs, n_obs_min)
-            with rf("uv_extract"):
+            with span("uv_extract"):
                 univar_extract(bufs[i], front, outs, s, y0, thresh, reliable,
                         max_df)
             if calls is not None:
                 calls[i] += 1
             del outs
-    with rf("uv_tally"):
+    with span("uv_tally"):
         tallies = torch.stack([b.tally.to(devices[0]) for b in bufs])
         if mesh is not None:
             total = psum(mesh, tallies.sum(dim=0))
@@ -724,17 +724,16 @@ def _significant(cand, p, m, alpha, FDR):
     to the host in one transfer and each dict inserts in ascending
     adjusted p, ties by condensed pair index, as the host path's dicts
     (HITON's candidate order depends on it)."""
-    rf = torch.profiler.record_function
     la = math.log(alpha)
-    with rf("uv_psorted"), _gc_paused():
+    with span("uv_psorted"), _gc_paused():
         nbr = {i: PSortedNbrs() for i in range(p)}
     if cand is None:
         return nbr, 0
     X, Y, lp, stat = cand
     kept = lp.numel()
-    with rf("uv_sort"):
+    with span("uv_sort"):
         slog, order = torch.sort(lp, stable=True)
-    with rf("uv_bh"):
+    with span("uv_bh"):
         if FDR:
             # BH's step-up: the significant pairs are the ranks up to the
             # last whose term is below log alpha, and there each adjusted
@@ -754,12 +753,12 @@ def _significant(cand, p, m, alpha, FDR):
             # the candidates below log alpha, a prefix of the sorted ones
             n_sig = int((slog < la).sum())
             ladj = slog[:n_sig]
-    with rf("uv_transfer"):
+    with span("uv_transfer"):
         order = order[:n_sig]
         rows = torch.stack([X[order].to(torch.float64),
                             Y[order].to(torch.float64), ladj,
                             stat[order]]).cpu().numpy()
-    with rf("uv_fill"), _gc_paused():
+    with span("uv_fill"), _gc_paused():
         Xs, Ys = rows[0].astype(np.int64), rows[1].astype(np.int64)
         pvals, stats = np.exp(rows[2]), rows[3]
         # BH plateaus give exact ties in the adjusted p; the host path's

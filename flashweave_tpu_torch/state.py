@@ -29,6 +29,7 @@ import torch
 
 from .device import resolve_device
 from .ops.kernels import level_marginals
+from .utils.timing import span
 
 
 @dataclass
@@ -122,7 +123,10 @@ def from_numpy_continuous(data, device="cuda") -> torch.Tensor:
     """Upload a continuous (n, p) table once, as the contiguous float64
     tensor the fz_nz kernel and the conditioning engine read.  (The JAX
     package's float16 upload for large tables was a transfer device of its
-    TPU; float64 keeps the card's decisions equal to the CPU's.)"""
+    TPU; float64 keeps the card's decisions equal to the CPU's.)  The cast
+    runs under the span ``prep_convert``, the copy under ``prep_upload``."""
     dev = resolve_device(device)
-    arr = np.ascontiguousarray(np.asarray(data), dtype=np.float64)
-    return torch.from_numpy(arr).to(dev)
+    with span("prep_convert"):
+        arr = np.ascontiguousarray(np.asarray(data), dtype=np.float64)
+    with span("prep_upload"):
+        return torch.from_numpy(arr).to(dev)

@@ -2,7 +2,9 @@
 
 The JAX package's host utilities (levels, weights, graph assembly),
 copied so that the port imports nothing of ``flashweave_tpu``.  The heavy
-numerics of the port live in ``flashweave_tpu_torch.ops``.
+numerics of the port live in ``flashweave_tpu_torch.ops``.  The three
+parts of ``assemble_graph_bulk`` run under the port's profiler spans
+``asm_collect``, ``asm_merge`` and ``asm_adj`` (``utils.timing.span``).
 Nothing else differs; ``tests/test_torch_host_copies.py`` checks that.
 
 Small host-side utilities.
@@ -21,6 +23,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..types import Graph, NbrStatDict
+from .timing import span
 
 # float64 overflow bound of the fisher-z statistic scale (reference src/misc.jl:1)
 INF_WEIGHT = 708.3964185322641
@@ -181,66 +184,69 @@ def assemble_graph_bulk(
     uni = weight_type.startswith("uni")
     kind_i = 1 if weight_type.split("_")[1] == "pval" else 0
     discrete = isdiscrete(test_name)
-    us, vs, ws, sgn = [], [], [], []
-    for T, d in nbr_dict.items():
-        univ = all_univar_nbrs[T]
-        for nbr, cw in d.items():
-            us.append(T)
-            vs.append(nbr)
-            ws.append(univ[nbr][kind_i] if uni else cw[kind_i])
-            if discrete and not uni:
-                sgn.append(univ[nbr][0])
+    with span("asm_collect"):
+        us, vs, ws, sgn = [], [], [], []
+        for T, d in nbr_dict.items():
+            univ = all_univar_nbrs[T]
+            for nbr, cw in d.items():
+                us.append(T)
+                vs.append(nbr)
+                ws.append(univ[nbr][kind_i] if uni else cw[kind_i])
+                if discrete and not uni:
+                    sgn.append(univ[nbr][0])
     G = Graph(max_var)
     if not us:
         return G
-    u = np.asarray(us, np.int64)
-    v = np.asarray(vs, np.int64)
-    w = np.asarray(ws, np.float64)
-    if discrete and not uni:
-        w = np.sign(np.asarray(sgn, np.float64)) * np.abs(w)
-    lo = np.minimum(u, v)
-    hi = np.maximum(u, v)
-    key = lo * np.int64(max_var) + hi
-    order = np.lexsort((np.arange(len(key)), key))
-    ks = key[order]
-    wsrt = w[order]
-    first = np.ones(len(ks), bool)
-    first[1:] = ks[1:] != ks[:-1]
-    gstart = np.nonzero(first)[0]
-    gsize = np.diff(np.append(gstart, len(ks)))
-    w1 = wsrt[gstart]
-    w2 = np.where(gsize > 1, wsrt[np.minimum(gstart + 1, len(ks) - 1)],
-                  np.nan)
-    with np.errstate(invalid="ignore"):
-        nan1 = np.isnan(w1)
-        nan2 = np.isnan(w2)
-        s1 = np.sign(w1)
-        conflict = ~nan1 & ~nan2 & (s1 * np.sign(w2) < 0)
-        merged = np.where(
-            nan1, w2,
-            np.where(nan2, w1,
-                     np.maximum(np.abs(w1), np.abs(w2)) * s1))
-        merged = np.where(conflict, w1, merged)
-    if conflict.any():
-        oi = order[gstart]
-        for gi in np.nonzero(conflict)[0]:
-            e1, e2 = int(u[oi[gi]]), int(v[oi[gi]])
-            e1w, e2w = (header[e1], header[e2]) if header is not None else (
-                e1, e2)
-            warnings.warn(
-                f"Opposite signs for edge {e1w} <-> {e2w} detected. "
-                "Arbitarily choosing one."
-            )
-    keep = ~np.isnan(merged)
-    n_nan = int((~keep).sum())
-    if n_nan > 0:
-        warnings.warn(f"{n_nan} edges with NaN weights were removed.")
-    adj = G.adj
-    for a, b, m in zip((ks[gstart[keep]] // max_var).tolist(),
-                       (ks[gstart[keep]] % max_var).tolist(),
-                       merged[keep].tolist()):
-        adj.setdefault(a, {})[b] = m
-        adj.setdefault(b, {})[a] = m
+    with span("asm_merge"):
+        u = np.asarray(us, np.int64)
+        v = np.asarray(vs, np.int64)
+        w = np.asarray(ws, np.float64)
+        if discrete and not uni:
+            w = np.sign(np.asarray(sgn, np.float64)) * np.abs(w)
+        lo = np.minimum(u, v)
+        hi = np.maximum(u, v)
+        key = lo * np.int64(max_var) + hi
+        order = np.lexsort((np.arange(len(key)), key))
+        ks = key[order]
+        wsrt = w[order]
+        first = np.ones(len(ks), bool)
+        first[1:] = ks[1:] != ks[:-1]
+        gstart = np.nonzero(first)[0]
+        gsize = np.diff(np.append(gstart, len(ks)))
+        w1 = wsrt[gstart]
+        w2 = np.where(gsize > 1, wsrt[np.minimum(gstart + 1, len(ks) - 1)],
+                      np.nan)
+        with np.errstate(invalid="ignore"):
+            nan1 = np.isnan(w1)
+            nan2 = np.isnan(w2)
+            s1 = np.sign(w1)
+            conflict = ~nan1 & ~nan2 & (s1 * np.sign(w2) < 0)
+            merged = np.where(
+                nan1, w2,
+                np.where(nan2, w1,
+                         np.maximum(np.abs(w1), np.abs(w2)) * s1))
+            merged = np.where(conflict, w1, merged)
+        if conflict.any():
+            oi = order[gstart]
+            for gi in np.nonzero(conflict)[0]:
+                e1, e2 = int(u[oi[gi]]), int(v[oi[gi]])
+                e1w, e2w = (header[e1], header[e2]) if header is not None else (
+                    e1, e2)
+                warnings.warn(
+                    f"Opposite signs for edge {e1w} <-> {e2w} detected. "
+                    "Arbitarily choosing one."
+                )
+        keep = ~np.isnan(merged)
+        n_nan = int((~keep).sum())
+        if n_nan > 0:
+            warnings.warn(f"{n_nan} edges with NaN weights were removed.")
+    with span("asm_adj"):
+        adj = G.adj
+        for a, b, m in zip((ks[gstart[keep]] // max_var).tolist(),
+                           (ks[gstart[keep]] % max_var).tolist(),
+                           merged[keep].tolist()):
+            adj.setdefault(a, {})[b] = m
+            adj.setdefault(b, {})[a] = m
     return G
 
 

@@ -10,6 +10,7 @@ network."""
 
 import ast
 import difflib
+import re
 import warnings
 from pathlib import Path
 
@@ -24,7 +25,8 @@ ROOT = Path(__file__).resolve().parent.parent
 # lines each copy may differ in below its docstring
 _ALLOWED = {
     "types.py": set(),
-    "utils/misc.py": set(),
+    # the profiler spans' helper (the spans themselves are undone first)
+    "utils/misc.py": {"from .timing import span"},
     "utils/testing.py": set(),
     "preprocessing.py": set(),
     "io.py": set(),
@@ -38,12 +40,34 @@ _ALLOWED = {
 }
 
 
+# the port's profiler spans in each copy, undone before the copies are
+# compared: each ``with span("<name>"):`` line goes and its block moves
+# back one level
+_SPANS = {"utils/misc.py": ["asm_collect", "asm_merge", "asm_adj"]}
+
+
 def _code(path: Path):
     """Source lines after the module docstring."""
     src = path.read_text()
     doc = ast.parse(src).body[0]
     assert isinstance(doc, ast.Expr) and isinstance(doc.value, ast.Constant)
     return src.splitlines()[doc.end_lineno:]
+
+
+def _undo_spans(lines, names):
+    out, found, block = [], [], None
+    for line in lines:
+        indent = len(line) - len(line.lstrip())
+        if block is not None and line.strip() and indent <= block:
+            block = None
+        m = re.fullmatch(r'(\s*)with span\("(\w+)"\):', line)
+        if m and block is None:
+            found.append(m.group(2))
+            block = len(m.group(1))
+            continue
+        out.append(line[4:] if block is not None and line.strip() else line)
+    assert found == names, found
+    return out
 
 
 @pytest.mark.parametrize("rel", sorted(_ALLOWED))
@@ -53,7 +77,8 @@ def test_host_copy_matches_jax(rel):
         f'"""Copy of ``flashweave_tpu/{rel}`` for the PyTorch port.')
     diff = [
         line[1:].strip() for line in difflib.ndiff(
-            _code(ROOT / "flashweave_tpu" / rel), _code(port))
+            _code(ROOT / "flashweave_tpu" / rel),
+            _undo_spans(_code(port), _SPANS.get(rel, [])))
         if line[:1] in "+-" and line[1:].strip()
     ]
     assert set(diff) <= _ALLOWED[rel], diff

@@ -10,6 +10,7 @@ files except for the documented lines.
 """
 
 import difflib
+import json
 import warnings
 from pathlib import Path
 
@@ -218,3 +219,8 @@ def test_lgl_profile_dir_writes_trace(table, tmp_path):
               profile_dir=str(tmp_path))
     assert res.graph.n_nodes == 20
     assert (tmp_path / "trace.json").stat().st_size > 0
+    with open(tmp_path / "trace.json") as f:
+        names = {ev.get("name") for ev in json.load(f)["traceEvents"]
+                 if ev.get("cat") == "user_annotation"}
+    assert {"stage:prepare", "stage:univariate", "stage:postprocess",
+            "lgl"} <= names
